@@ -1,0 +1,644 @@
+"""Exact all-pairs VPDQ similarity search on a GPU (counterpart of the JAX
+package's ``parallel/engine.py``).
+
+``GpuSearchEngine.find_pairs_pruned`` is stage 4's main path:
+
+1. host: ``ops.reps.extract_reps`` clusters each video's frames into scene
+   leaders (native C++, reused from the JAX package);
+2. stage A: the existence mask sweep (``ops.similarity_segments``, a
+   hand-written CUDA kernel) compares every row leader with every column
+   leader at the inflated tolerance 31 + 2 * radius_cap; the column
+   leaders stay on the device, bit-packed, across the checkpointed chunks
+   of a sweep (``col_state``);
+3. drain: ``torch.nonzero`` over the row-packed masks on the device, then
+   a host bit decode (word w, bit b -> row slot 32w+b) to candidate pairs;
+4. stage B: ``ops.pair_verify.verify_pairs`` computes each candidate's
+   exact similarity.
+
+Videos longer than SEG_MAX_FRAMES take the complement sweeps through
+``find_pairs``: the bucketed route (videos padded to a power of two, ±1
+products through ``torch.matmul``) and, above MAX_BUCKET frames, exact
+native comparison on the host. The unpruned segment route and its kernel
+are not ported yet, so ``find_pairs`` always takes the bucketed route.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from hydrus_video_deduplicator_tpu.ops import reps as reps_mod
+from hydrus_video_deduplicator_tpu.vpdq import matchHashBytes
+
+from .._device import resolve_device
+from ..ops import pair_verify
+from ..ops import similarity as ops_sim
+from ..ops import similarity_segments as seg
+from ..ops.similarity import BYTES, LANES, MATCH_DOT, TOL
+
+#: nominal row/column video tile sizes for an 8-frame bucket; tiles scale
+#: inversely with bucket frame count (see _tile_videos)
+TILE_ROWS = 128
+TILE_COLS = 1024
+#: frame budgets per tile side: a bucketed tile materializes a
+#: [row_frames x col_frames] product (32 M entries)
+TILE_ROW_FRAMES = TILE_ROWS * 8
+TILE_COL_FRAMES = TILE_COLS * 8
+#: videos longer than this many frames skip the bucketed device path and
+#: are compared exactly on the host (native matchHashBytes)
+MAX_BUCKET = 1024
+
+
+def _bucket_size(n_frames: int) -> int:
+    p = 1
+    while p < n_frames:
+        p <<= 1
+    return p
+
+
+def _tile_videos(nominal: int, frame_budget: int, pad: int) -> int:
+    """Videos per tile for a bucket of ``pad`` frames, at least 1."""
+    return max(1, min(nominal, frame_budget // pad))
+
+
+def iter_blob_items(src, indices):
+    """(index, blob) stream over a blob source for the given indices.
+
+    Sources that implement ``iter_many`` (DB-backed columns) stream in
+    batches; plain sequences fall back to per-item indexing."""
+    if hasattr(src, "iter_many"):
+        return src.iter_many(indices)
+    return ((int(i), src[int(i)]) for i in indices)
+
+
+def blob_frame_counts(src) -> np.ndarray:
+    """Per-video frame counts without holding blob bytes (DB-backed sources
+    expose ``blob_n_frames``)."""
+    if hasattr(src, "blob_n_frames"):
+        return np.asarray(src.blob_n_frames, dtype=np.int64)
+    return np.fromiter((len(b) // BYTES for b in src), dtype=np.int64, count=len(src))
+
+
+#: next power of two for every legal bucketed frame count (1..MAX_BUCKET)
+_POW2_TABLE = np.asarray(
+    [_bucket_size(max(n, 1)) for n in range(MAX_BUCKET + 1)], dtype=np.int64
+)
+
+
+@dataclass
+class _Bucket:
+    pad: int
+    video_idx: np.ndarray  # int64 corpus indices (ascending)
+    counts: np.ndarray  # int32 frame counts, aligned with video_idx
+
+
+class CorpusIndex:
+    """Host-side index of a corpus of packed hashes, bucketed by length.
+
+    Construction reads only frame counts; a bucket's packed frames
+    materialize on demand in ``bucket_arrays``. Videos with more than
+    MAX_BUCKET frames are kept in ``long`` with their blobs.
+    """
+
+    def __init__(self, phashes):
+        self.src = phashes
+        self.n = len(phashes)
+        self.n_frames = blob_frame_counts(phashes) if self.n else np.zeros(0, np.int64)
+        self.buckets: dict[int, _Bucket] = {}
+        bucketable = (self.n_frames > 0) & (self.n_frames <= MAX_BUCKET)
+        pads = np.zeros(self.n, dtype=np.int64)
+        pads[bucketable] = _POW2_TABLE[self.n_frames[bucketable]]
+        for pad in np.unique(pads[bucketable]):
+            sel = np.nonzero(pads == pad)[0].astype(np.int64)
+            self.buckets[int(pad)] = _Bucket(
+                int(pad), sel, self.n_frames[sel].astype(np.int32)
+            )
+        self.long: list[tuple[int, bytes]] = list(
+            iter_blob_items(phashes, np.nonzero(self.n_frames > MAX_BUCKET)[0])
+        )
+
+    def bucket_arrays(self, pad: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        b = self.buckets[pad]
+        frames = np.zeros((len(b.video_idx), pad, LANES), dtype=np.uint32)
+        for k, (_i, blob) in enumerate(iter_blob_items(self.src, b.video_idx)):
+            n = len(blob) // BYTES
+            frames[k, :n] = ops_sim.blobs_to_packed(blob)
+        return b.video_idx, frames, b.counts
+
+
+class SegColumns:
+    """Column-side view of the segment-eligible corpus: indices and frame
+    counts up front, blob bytes streamed once by the staging fill."""
+
+    def __init__(self, indices: np.ndarray, counts: np.ndarray, src):
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.counts = np.asarray(counts, dtype=np.int32)
+        self.src = src
+
+    def iter_items(self):
+        return iter_blob_items(self.src, self.indices)
+
+
+def seg_columns_from_pairs(pairs: "list[tuple[int, bytes]]") -> SegColumns:
+    """SegColumns over a materialized [(corpus_idx, blob)] list (the pruned
+    route's rep columns)."""
+    by = {int(i): b for i, b in pairs}
+    idx = np.fromiter((i for i, _ in pairs), dtype=np.int64, count=len(pairs))
+    cnt = np.fromiter(
+        (len(b) // BYTES for _, b in pairs), dtype=np.int32, count=len(pairs)
+    )
+    return SegColumns(idx, cnt, by)
+
+
+def state_from_jax(col_state: dict) -> dict:
+    """A port ``col_state`` from a JAX engine's one.
+
+    Carries the host-side pruned-search state — the column scene
+    representatives ``prune.rep_cols`` with the ``rep_cols_radius_cap``
+    they were clustered at, and the column frame counts — so both engines
+    sweep from the same reps. Device staging is not carried: the port
+    stages its own columns on first use.
+    """
+    prune = col_state.get("prune", {})
+    out: dict = {}
+    if "rep_cols" in prune:
+        out["prune"] = {
+            "rep_cols": [(int(i), bytes(b)) for i, b in prune["rep_cols"]],
+            "rep_cols_radius_cap": int(prune["rep_cols_radius_cap"]),
+        }
+    if "col_n_frames" in col_state:
+        out["col_n_frames"] = np.asarray(col_state["col_n_frames"], dtype=np.int64).copy()
+    return out
+
+
+def _tile_similarity(rows_words, rows_counts, cols_words, cols_counts, pa: int, pb: int):
+    """Integer video-level similarity [TR, TC] for one bucketed tile pair.
+
+    rows_words [TR, pa, 8] / cols_words [TC, pb, 8] int32, counts [TR] /
+    [TC] int32. ±1 products in fp16 on CUDA, float32 on the CPU: exact,
+    every sum is an integer of magnitude <= 256.
+    """
+    dtype = torch.float16 if rows_words.is_cuda else torch.float32
+    tr, tc = rows_words.shape[0], cols_words.shape[0]
+    a = ops_sim.unpack_pm1(rows_words.reshape(tr * pa, LANES), dtype)
+    b = ops_sim.unpack_pm1(cols_words.reshape(tc * pb, LANES), dtype)
+    dot = torch.matmul(a, b.T).reshape(tr, pa, tc, pb)
+    dev = rows_words.device
+    va = torch.arange(pa, device=dev)[None, :] < rows_counts[:, None]  # [TR, pa]
+    vb = torch.arange(pb, device=dev)[None, :] < cols_counts[:, None]  # [TC, pb]
+    matched = (dot >= MATCH_DOT) & va[:, :, None, None] & vb[None, None, :, :]
+    ma = matched.any(dim=3).sum(dim=1, dtype=torch.int32)  # [TR, TC]
+    mb = matched.any(dim=1).sum(dim=2, dtype=torch.int32)  # [TR, TC]
+    fa = torch.clamp(rows_counts, min=1)[:, None]
+    fb = torch.clamp(cols_counts, min=1)[None, :]
+    sim = torch.minimum((100 * ma) // fa, (100 * mb) // fb)
+    nonempty = (rows_counts[:, None] > 0) & (cols_counts[None, :] > 0)
+    return torch.where(nonempty, sim, torch.zeros_like(sim))
+
+
+def decode_mask_hits(word_rows: np.ndarray, cols: np.ndarray, words: np.ndarray):
+    """Set bits of row-packed mask words -> (row slot, column slot) arrays.
+
+    word_rows/cols: positions of nonzero words in a [rows/32, col slots]
+    mask; words: their int32 values. Bit b of the word at [w, c] is row
+    slot 32w+b, column slot c (the layout of the sweep's output).
+    """
+    u8 = np.ascontiguousarray(words, dtype=np.int32).view(np.uint8).reshape(-1, 4)
+    bits = np.unpackbits(u8, axis=1, bitorder="little")  # [M, 32]
+    m_i, bit_i = np.nonzero(bits)
+    return np.asarray(word_rows)[m_i] * 32 + bit_i, np.asarray(cols)[m_i]
+
+
+class GpuSearchEngine:
+    """Exact all-pairs similarity search over packed VPDQ hashes on one
+    device. ``device`` defaults to CUDA and raises without it; tests pass
+    ``device="cpu"`` to run every kernel's plain PyTorch version."""
+
+    #: fraction of the free device memory a row tile's sweep masks may use
+    #: (a row block's mask is 8 words x 256 slots x 4 bytes per column step:
+    #: 9 MB per row block against a 1.4M-leader column corpus)
+    MASK_MEMORY_FRACTION = 0.125
+    #: the same budget on the CPU, where there is no memory query
+    CPU_MASK_BUDGET_BYTES = 1 << 26
+    #: column steps staged per host->device copy of the column corpus
+    COL_FILL_STEPS = 64
+
+    def __init__(self, device: "str | torch.device | None" = None):
+        self.device = resolve_device(device)
+        self._progress_cb = None
+        self._progress_done = 0
+        self._progress_total = 0
+
+    # -- the bucketed route (complement sweeps) ----------------------------
+
+    def find_pairs(
+        self,
+        row_phashes: list[bytes],
+        all_phashes: list[bytes],
+        min_int_similarity: int,
+        progress=None,
+        col_state: dict | None = None,
+        col_limit: int | None = None,
+    ) -> list[tuple[int, int, int]]:
+        """All (row_index, all_index, int_similarity) with similarity >=
+        min_int_similarity (>= 1). Every row video is compared with every
+        corpus video (its own slot included). Videos longer than
+        MAX_BUCKET frames are compared exactly on the host.
+
+        col_state: dict carrying the column-side index and device tiles
+        across calls that sweep the same all_phashes. col_limit: report
+        only hits whose corpus index is < col_limit; column tiles past it
+        are skipped.
+
+        The JAX package takes its fixed-shape segment route here on a TPU;
+        the port has not ported that route and its kernel yet, so every
+        bucket pair takes the bucketed route (identical results).
+        """
+        assert min_int_similarity >= 1, "minimum similarity must be >= 1"
+        state = col_state if col_state is not None else {}
+        rows = CorpusIndex(row_phashes)
+        cols = state.get("cols_index")
+        if cols is None:
+            cols = state["cols_index"] = CorpusIndex(all_phashes)
+        total_pairs = 0
+        for rb in rows.buckets.values():
+            for cb in cols.buckets.values():
+                n_cols = len(cb.video_idx)
+                if col_limit is not None:
+                    n_cols = int(np.searchsorted(cb.video_idx, col_limit))
+                total_pairs += len(rb.video_idx) * n_cols
+        self._progress_done = 0
+        self._progress_total = total_pairs
+        self._progress_cb = progress
+        out: list[tuple[int, int, int]] = []
+        col_arrays = state.setdefault("col_arrays", {})
+        col_tiles = state.setdefault("col_tiles", {})
+        for pa in rows.buckets:
+            r_idx, r_frames, r_counts = rows.bucket_arrays(pa)
+            for pb in cols.buckets:
+                if pb not in col_arrays:
+                    col_arrays[pb] = cols.bucket_arrays(pb)
+                out.extend(
+                    self._bucket_pair(
+                        pa, r_idx, r_frames, r_counts, pb, *col_arrays[pb],
+                        min_int_similarity, col_tiles, col_limit,
+                    )
+                )
+        out.extend(
+            self._long_video_pairs(
+                rows, row_phashes, cols, all_phashes, min_int_similarity, col_limit
+            )
+        )
+        return out
+
+    def _bucket_pair(
+        self, pa, r_idx, r_frames, r_counts, pb, c_idx, c_frames, c_counts, min_sim,
+        col_tiles, col_limit,
+    ):
+        tr = _tile_videos(TILE_ROWS, TILE_ROW_FRAMES, pa)
+        tc = _tile_videos(TILE_COLS, TILE_COL_FRAMES, pb)
+        tiles = col_tiles.get(pb)
+        if tiles is None:
+            # device column tiles depend only on pb: staged once per sweep
+            tiles = col_tiles[pb] = [
+                (
+                    j0,
+                    ops_sim.to_words(c_frames[j0 : j0 + tc], self.device),
+                    torch.from_numpy(c_counts[j0 : j0 + tc]).to(self.device),
+                )
+                for j0 in range(0, len(c_idx), tc)
+            ]
+        out = []
+        for i0 in range(0, len(r_idx), tr):
+            rf = ops_sim.to_words(r_frames[i0 : i0 + tr], self.device)
+            rc = torch.from_numpy(r_counts[i0 : i0 + tr]).to(self.device)
+            for j0, cf, cc in tiles:
+                if col_limit is not None and int(c_idx[j0]) >= col_limit:
+                    continue  # c_idx ascends: every later column is past it
+                sim = _tile_similarity(rf, rc, cf, cc, pa, pb)
+                hits = torch.nonzero(sim >= min_sim).cpu().numpy()
+                if len(hits):
+                    sims = sim[hits[:, 0], hits[:, 1]].cpu().numpy()
+                    ri = r_idx[i0 + hits[:, 0]]
+                    cj = c_idx[j0 + hits[:, 1]]
+                    keep = cj < col_limit if col_limit is not None else slice(None)
+                    out.extend(zip(ri[keep].tolist(), cj[keep].tolist(), sims[keep].tolist()))
+                if self._progress_cb is not None:
+                    cj_n = len(cf)
+                    if col_limit is not None:
+                        cj_n = int(np.searchsorted(c_idx[j0 : j0 + tc], col_limit))
+                    self._progress_done += len(rf) * cj_n
+                    self._progress_cb(self._progress_done, self._progress_total)
+        return out
+
+    def _long_video_pairs(self, rows, row_phashes, cols, all_phashes, min_sim, col_limit=None):
+        """Exact host-side comparison for videos too long to bucket: (long
+        row x every col) and (every row x long col), the (long x long)
+        block once. Threads run native matchHashBytes, which releases the
+        GIL. Under col_limit, columns at or past it are excluded."""
+        out: list[tuple[int, int, int]] = []
+        long_cols = [(j, blob) for j, blob in cols.long if col_limit is None or j < col_limit]
+        if not rows.long and not long_cols:
+            return out
+        long_row_set = {i for i, _ in rows.long}
+        nonempty_cols = [
+            (j, blob)
+            for j, blob in enumerate(all_phashes)
+            if len(blob) > 0 and (col_limit is None or j < col_limit)
+        ]
+        short_rows = [
+            (i, blob)
+            for i, blob in enumerate(row_phashes)
+            if len(blob) > 0 and i not in long_row_set
+        ]
+        # (index, blob, others, flipped): flipped jobs come from long corpus
+        # columns and emit (row, col) with the long video as the column
+        jobs = [(i, blob, nonempty_cols, False) for i, blob in rows.long]
+        jobs += [(j, blob, short_rows, True) for j, blob in long_cols]
+        if self._progress_cb is not None:
+            self._progress_total += sum(len(j[2]) for j in jobs)
+
+        def one(job):
+            idx, blob, others, flipped = job
+            hits = []
+            for k, other in others:
+                sim = int(matchHashBytes(blob, other, TOL))
+                if sim >= min_sim:
+                    hits.append((k, idx, sim) if flipped else (idx, k, sim))
+            return hits
+
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+            for job, hits in zip(jobs, ex.map(one, jobs)):
+                out.extend(hits)
+                if self._progress_cb is not None:
+                    self._progress_done += len(job[2])
+                    self._progress_cb(self._progress_done, self._progress_total)
+        return out
+
+    # -- the pruned route (stage 4's main path) ----------------------------
+
+    def find_pairs_pruned(
+        self,
+        row_phashes: list[bytes],
+        all_phashes: list[bytes],
+        min_int_similarity: int,
+        progress=None,
+        col_state: dict | None = None,
+        col_limit: int | None = None,
+        radius_cap: int | None = None,
+        rows_at: int | None = None,
+    ) -> list[tuple[int, int, int]]:
+        """find_pairs with the exact scene-representative prune: identical
+        result contract, device work (total leaders)^2 + (candidates x
+        their frames^2) instead of (total frames)^2.
+
+        Stage A sweeps every video's scene leaders (ops/reps.py, radius
+        <= radius_cap) at the inflated tolerance TOL + 2*radius_cap: by the
+        triangle inequality a video pair with no leader pair within it has
+        similarity exactly 0. Stage B verifies the surviving candidates
+        exactly. Videos longer than SEG_MAX_FRAMES take the complement
+        sweeps through find_pairs, unpruned.
+
+        ``rows_at``: when the rows are exactly
+        ``all_phashes[rows_at : rows_at + len(row_phashes)]`` (stage 4's
+        checkpointed triangle), the row leaders are looked up in the
+        column rep cache instead of re-clustered, and verify reuses the
+        in-memory row blobs for candidates inside that span.
+        """
+        assert min_int_similarity >= 1, "minimum similarity must be >= 1"
+        radius_cap = reps_mod.RADIUS_CAP if radius_cap is None else radius_cap
+        state = col_state if col_state is not None else {}
+        prune_state = state.setdefault("prune", {})
+
+        row_counts = blob_frame_counts(row_phashes)
+        col_counts = state.get("col_n_frames")
+        if col_counts is None:
+            col_counts = state["col_n_frames"] = blob_frame_counts(all_phashes)
+
+        seg_row_idx = np.nonzero(
+            (row_counts >= 1) & (row_counts <= seg.SEG_MAX_FRAMES)
+        )[0]
+
+        # The rep cache is valid only for the radius_cap it was built at: a
+        # sweep at prune_tolerance(smaller cap) over reps clustered at a
+        # larger cap breaks the triangle bound and silently drops pairs.
+        rep_cols = prune_state.get("rep_cols")
+        if rep_cols is None or prune_state.get("rep_cols_radius_cap") != radius_cap:
+            seg_col_idx = np.nonzero(
+                (col_counts >= 1) & (col_counts <= seg.SEG_MAX_FRAMES)
+            )[0]
+            # cluster in slabs so only one slab of column blobs is resident
+            col_reps: list[bytes] = []
+            slab = 1 << 18
+            for s0 in range(0, len(seg_col_idx), slab):
+                sl = seg_col_idx[s0 : s0 + slab]
+                col_reps.extend(
+                    reps_mod.extract_reps(
+                        [b for _, b in iter_blob_items(all_phashes, sl)], radius_cap
+                    )
+                )
+            rep_cols = prune_state["rep_cols"] = list(zip(seg_col_idx.tolist(), col_reps))
+            prune_state["rep_cols_radius_cap"] = radius_cap
+            # the device staging and the lookup of the old reps are stale
+            prune_state.pop("seg_cols", None)
+            prune_state.pop("rep_lookup", None)
+
+        if rows_at is not None:
+            rep_lookup = prune_state.get("rep_lookup")
+            if rep_lookup is None:
+                rep_lookup = prune_state["rep_lookup"] = dict(rep_cols)
+            row_reps = [rep_lookup[rows_at + int(i)] for i in seg_row_idx]
+        else:
+            row_reps = reps_mod.extract_reps(
+                [b for _, b in iter_blob_items(row_phashes, seg_row_idx)], radius_cap
+            )
+        seg_rows = list(zip(seg_row_idx.tolist(), row_reps))
+
+        self._progress_done = 0
+        self._progress_total = len(seg_rows) * len(rep_cols)
+        self._progress_cb = progress
+        candidates: list[tuple[int, int]] = []
+        if seg_rows and rep_cols:
+            cols_dev = prune_state.get("seg_cols")
+            if cols_dev is None:
+                cols_dev = prune_state["seg_cols"] = self._stage_columns(
+                    seg_columns_from_pairs(rep_cols)
+                )
+            candidates = self._segment_route(
+                seg_rows, cols_dev, col_limit, reps_mod.prune_tolerance(radius_cap)
+            )
+
+        # DB-backed columns: fetch every candidate's column blob in batched
+        # IN() probes; candidates inside this chunk's own row span reuse the
+        # in-memory row blobs (nearly all of them at corpus scale, since
+        # every video's self-pair is a candidate)
+        col_blobs_for_verify = all_phashes
+        if hasattr(all_phashes, "iter_many") and candidates:
+            need = sorted({j for _, j in candidates})
+            local: dict[int, bytes] = {}
+            if rows_at is not None:
+                n_rows = len(row_phashes)
+                for j in need:
+                    if rows_at <= j < rows_at + n_rows:
+                        local[j] = row_phashes[j - rows_at]
+                need = [j for j in need if not (rows_at <= j < rows_at + n_rows)]
+            if need:
+                local.update(all_phashes.iter_many(need))
+            col_blobs_for_verify = local
+        out = pair_verify.verify_pairs(
+            candidates, row_phashes, col_blobs_for_verify, min_int_similarity, self.device
+        )
+
+        # Complement sweeps (unpruned find_pairs with the segment-eligible
+        # side emptied — empty blobs match nothing): long rows x every col,
+        # then segment rows x long cols. No overlap, no double count.
+        long_rows = set(np.nonzero(row_counts > seg.SEG_MAX_FRAMES)[0].tolist())
+        long_cols = set(np.nonzero(col_counts > seg.SEG_MAX_FRAMES)[0].tolist())
+        if long_rows:
+            masked = [
+                row_phashes[i] if i in long_rows else b"" for i in range(len(row_phashes))
+            ]
+            out.extend(
+                self.find_pairs(
+                    masked, all_phashes, min_int_similarity,
+                    col_state=state.setdefault("prune_long_rows", {}),
+                    col_limit=col_limit,
+                )
+            )
+        if long_cols:
+            masked_rows = [
+                row_phashes[i] if (i not in long_rows and row_counts[i] >= 1) else b""
+                for i in range(len(row_phashes))
+            ]
+            masked_cols = [
+                all_phashes[j] if j in long_cols else b"" for j in range(len(all_phashes))
+            ]
+            out.extend(
+                self.find_pairs(
+                    masked_rows, masked_cols, min_int_similarity,
+                    col_state=state.setdefault("prune_long_cols", {}),
+                    col_limit=col_limit,
+                )
+            )
+        return out
+
+    def _stage_columns(self, seg_cols: SegColumns) -> dict:
+        """Pack the column corpus into CHUNK_FRAMES chunks (N_SPLIT per
+        step) and copy it to the device, bit-packed, COL_FILL_STEPS steps
+        at a time so host memory stays bounded. Returns the device words
+        [n_steps*STEP_FRAMES, 8] int32 and slot ids [n_steps*STEP_FRAMES]
+        int32 (-1 padding), and the host map from flat column slot to
+        corpus index ``smaps`` [n_steps*STEP_SLOTS] int64 (-1 empty)."""
+        counts = seg_cols.counts
+        chunk_id, slot_id, _frame_off, n_chunks = seg.plan_chunks(
+            counts, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS
+        )
+        n_steps = max(1, -(-n_chunks // seg.N_SPLIT))
+        n_frames = n_steps * seg.STEP_FRAMES
+        words = torch.zeros((n_frames, LANES), dtype=torch.int32, device=self.device)
+        slots = torch.full((n_frames,), -1, dtype=torch.int32, device=self.device)
+        smaps = np.full(n_steps * seg.STEP_SLOTS, -1, dtype=np.int64)
+        smaps[chunk_id * seg.CHUNK_SLOTS + slot_id] = seg_cols.indices
+
+        grp = self.COL_FILL_STEPS * seg.STEP_FRAMES
+        buf_w = np.zeros((grp, LANES), dtype=np.uint32)
+        buf_s = np.full(grp, -1, dtype=np.int32)
+        g0 = 0  # first frame of the group being filled
+
+        def flush():
+            n = min(grp, n_frames - g0)
+            words[g0 : g0 + n].copy_(torch.from_numpy(buf_w[:n].view(np.int32)))
+            slots[g0 : g0 + n].copy_(torch.from_numpy(buf_s[:n]))
+            buf_w[:] = 0
+            buf_s[:] = -1
+
+        # a chunk's videos are contiguous from its first frame, so each
+        # chunk packs with one blobs_to_packed over its joined bytes
+        items = enumerate(seg_cols.iter_items())
+        for c, group in itertools.groupby(items, key=lambda kv: int(chunk_id[kv[0]])):
+            group = list(group)
+            ks = slice(group[0][0], group[-1][0] + 1)
+            f0 = c * seg.CHUNK_FRAMES
+            if f0 >= g0 + grp:
+                flush()
+                g0 = f0 - f0 % grp
+            n = int(counts[ks].sum())
+            buf_w[f0 - g0 : f0 - g0 + n] = ops_sim.blobs_to_packed(
+                b"".join(blob for _, (_j, blob) in group)
+            )
+            buf_s[f0 - g0 : f0 - g0 + n] = np.repeat(slot_id[ks], counts[ks])
+        flush()
+        return {"words": words, "slots": slots, "smaps": smaps, "n_steps": n_steps}
+
+    def _row_blocks_per_tile(self, n_row_blocks: int, n_steps: int) -> int:
+        """Row blocks per sweep launch, from the memory its masks take."""
+        mask_bytes = seg.MASK_WORDS * n_steps * seg.STEP_SLOTS * 4
+        if self.device.type == "cuda":
+            free, _total = torch.cuda.mem_get_info(self.device)
+            budget = int(free * self.MASK_MEMORY_FRACTION)
+        else:
+            budget = self.CPU_MASK_BUDGET_BYTES
+        return max(1, min(n_row_blocks, 65535, budget // mask_bytes))
+
+    def _segment_route(self, seg_rows, cols_dev, col_limit, tolerance):
+        """Stage A over staged columns: candidate (row, col) corpus pairs.
+
+        Each row tile is one sweep launch against the whole column corpus;
+        per-step validity skips steps holding no column below col_limit.
+        The next tile is launched before the previous one drains, so the
+        device works while the host decodes.
+        """
+        smaps = cols_dev["smaps"]
+        n_steps = cols_dev["n_steps"]
+        live = smaps.reshape(n_steps, seg.STEP_SLOTS) >= 0
+        if col_limit is not None:
+            live &= smaps.reshape(n_steps, seg.STEP_SLOTS) < col_limit
+        total_cols = int(live.sum())
+        valid = torch.from_numpy(live.any(axis=1).astype(np.int32)).to(self.device)
+
+        row_blocks = seg.pack_blocks(seg_rows, seg.ROW_FRAMES, seg.ROW_SLOTS)
+        per_tile = self._row_blocks_per_tile(len(row_blocks), n_steps)
+        out: list[tuple[int, int]] = []
+        pending = None
+        for i0 in range(0, len(row_blocks), per_tile):
+            group = row_blocks[i0 : i0 + per_tile]
+            packed, slot_ids, _cnt, rmap = seg.stack_blocks(
+                group, len(group), seg.ROW_FRAMES, seg.ROW_SLOTS
+            )
+            masks = seg.exists_mask_sweep(
+                ops_sim.to_words(packed, self.device),
+                torch.from_numpy(slot_ids).to(self.device),
+                cols_dev["words"],
+                cols_dev["slots"],
+                valid,
+                tolerance,
+            )
+            if pending is not None:
+                self._drain(*pending, smaps, col_limit, total_cols, out)
+            pending = (rmap, masks)
+        if pending is not None:
+            self._drain(*pending, smaps, col_limit, total_cols, out)
+        return out
+
+    def _drain(self, rmap, masks, smaps, col_limit, total_cols, out):
+        """Candidate pairs from one tile's masks: nonzero words found on the
+        device, their bits decoded on the host."""
+        nz = torch.nonzero(masks)
+        if len(nz):
+            vals = masks[nz[:, 0], nz[:, 1]].cpu().numpy()
+            nz = nz.cpu().numpy()
+            rows_l, cols_l = decode_mask_hits(nz[:, 0], nz[:, 1], vals)
+            ia = rmap[rows_l]
+            ib = smaps[cols_l]
+            keep = (ia >= 0) & (ib >= 0)
+            if col_limit is not None:
+                keep &= ib < col_limit
+            out.extend(zip(ia[keep].tolist(), ib[keep].tolist()))
+        if self._progress_cb is not None:
+            self._progress_done += int((rmap >= 0).sum()) * total_cols
+            self._progress_cb(self._progress_done, self._progress_total)

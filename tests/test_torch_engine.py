@@ -1,0 +1,289 @@
+"""GpuSearchEngine (on the CPU, through the plain PyTorch versions) against
+the JAX package's TpuSearchEngine on the CPU.
+
+Pair sets must be identical: the port's pruned route == the JAX pruned
+route == the JAX unpruned route, including videos past the segment limit
+(512 frames) and past the bucketed limit (1024 frames), the chunked
+triangle (col_limit with col_state reuse and rows_at), and rep-cache
+radius-cap invalidation.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from hydrus_video_deduplicator_tpu.parallel.engine import TpuSearchEngine
+from hydrus_video_deduplicator_tpu_torch.ops import pair_verify
+from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+from hydrus_video_deduplicator_tpu_torch.parallel import engine as eng
+from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
+
+from .unit_tests.test_pruned_search import _flip, _mixed_corpus, _scene_video
+
+
+def _port():
+    return GpuSearchEngine(device="cpu")
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    """Mixed scene corpus plus a 1100-frame video and its re-encode (past
+    both the segment and the bucketed limits) and a 600-frame one; the JAX
+    engines' all-pairs results at min_sim 1 are computed once."""
+    rng = np.random.default_rng(4321)
+    blobs = _mixed_corpus(rng, long_video=True)  # two 600-frame videos last
+    very_long = _scene_video(rng, 110, 10)
+    assert len(very_long) > 1024
+    blobs.insert(10, very_long.tobytes())
+    blobs.insert(20, np.stack([_flip(rng, f, 6) for f in very_long]).tobytes())
+    brute = sorted(TpuSearchEngine(force_segments=True).find_pairs(blobs, blobs, 1))
+    pruned = sorted(TpuSearchEngine(force_segments=True).find_pairs_pruned(blobs, blobs, 1))
+    return blobs, brute, pruned
+
+
+@pytest.mark.parametrize("min_sim", [1, 30, 75, 100])
+def test_pruned_equals_jax(corpus, min_sim):
+    blobs, brute, pruned = corpus
+    want = [h for h in brute if h[2] >= min_sim]
+    assert [h for h in pruned if h[2] >= min_sim] == want
+    got = sorted(_port().find_pairs_pruned(blobs, blobs, min_sim))
+    assert got == want
+    lens = [len(b) // 32 for b in blobs]
+    # the long-video complements contribute, on both sides of the limits
+    assert any(lens[i] > 1024 and lens[j] > 1024 and i != j for i, j, _ in want)
+    assert any(512 < lens[i] <= 1024 and i != j for i, j, _ in want)
+
+
+def test_find_pairs_equals_jax(corpus):
+    """The port's find_pairs (bucketed route + host path for the longest)."""
+    blobs, brute, _ = corpus
+    assert sorted(_port().find_pairs(blobs, blobs, 40)) == [h for h in brute if h[2] >= 40]
+
+
+def test_pruned_col_limit_state_reuse_and_rows_at(corpus):
+    """The stage-4 pattern: two row chunks sharing col_state, each sweeping
+    the corpus prefix up to its own end, rows looked up by position."""
+    blobs, brute, _ = corpus
+    n = len(blobs)
+    half = n // 2
+    engine = _port()
+    state: dict = {}
+    got_a = engine.find_pairs_pruned(
+        blobs[:half], blobs, 20, col_state=state, col_limit=half, rows_at=0
+    )
+    staged = state["prune"]["seg_cols"]
+    got_b = engine.find_pairs_pruned(
+        blobs[half:], blobs, 20, col_state=state, col_limit=n, rows_at=half
+    )
+    assert state["prune"]["seg_cols"] is staged  # columns staged once
+    want_a = [h for h in brute if h[2] >= 20 and h[0] < half and h[1] < half]
+    want_b = [(i - half, j, s) for i, j, s in brute if s >= 20 and i >= half]
+    assert sorted(got_a) == want_a
+    assert sorted(got_b) == want_b
+
+
+def test_pruned_exact_with_one_row_block_per_launch(corpus, monkeypatch):
+    """A tiny mask budget puts one row block in each sweep launch: the row
+    maps must stay right across tiles and the drain pipeline."""
+    blobs, brute, _ = corpus
+    pos = {k: p for p, k in enumerate(k for k, b in enumerate(blobs) if len(b) <= 32 * 512)}
+    n = len(pos)
+    many = [blobs[k] for k in pos] * 16  # > 256 videos: several row blocks
+    monkeypatch.setattr(GpuSearchEngine, "CPU_MASK_BUDGET_BYTES", 1)
+    launches = []
+    real = seg.exists_mask_sweep
+
+    def spy(a, *args):
+        launches.append(a.shape[0] // seg.ROW_FRAMES)
+        return real(a, *args)
+
+    monkeypatch.setattr(seg, "exists_mask_sweep", spy)
+    got = sorted(_port().find_pairs_pruned(many, many, 90, col_limit=n * 3))
+    assert len(launches) > 1 and set(launches) == {1}
+    want = sorted(
+        (pos[i] + n * a, pos[j] + n * b, s)
+        for i, j, s in brute
+        if s >= 90 and i in pos and j in pos
+        for a in range(16)
+        for b in range(3)
+    )
+    assert got == want
+
+
+def test_pruned_verify_reuses_row_span_blobs(corpus, monkeypatch):
+    """DB-backed columns (the iter_many duck type) + rows_at: verify's
+    column blobs inside the chunk's own row span are the in-memory row
+    objects themselves; out-of-span ones are fetched; pairs stay exact."""
+    blobs, brute, _ = corpus
+    n = len(blobs)
+    half = n // 2
+
+    class SpyColumn:
+        def __init__(self, items):
+            self._items = items
+            self.blob_n_frames = [len(b) // 32 for b in items]
+
+        def __len__(self):
+            return len(self._items)
+
+        def __getitem__(self, i):
+            return bytes(bytearray(self._items[int(i)]))
+
+        def iter_many(self, indices):
+            return ((int(i), bytes(bytearray(self._items[int(i)]))) for i in indices)
+
+    captured: dict = {}
+    real_verify = pair_verify.verify_pairs
+
+    def spy_verify(pairs, row_blob, col_blob, min_sim, device, progress=None):
+        captured.update(pairs=list(pairs), row_blob=row_blob, col_blob=col_blob)
+        return real_verify(pairs, row_blob, col_blob, min_sim, device, progress)
+
+    monkeypatch.setattr(pair_verify, "verify_pairs", spy_verify)
+    rows = blobs[half:]
+    got = sorted(
+        _port().find_pairs_pruned(
+            rows, SpyColumn(blobs), 20, col_state={}, col_limit=n, rows_at=half
+        )
+    )
+    assert got == [(i - half, j, s) for i, j, s in brute if s >= 20 and i >= half]
+    cand = captured["pairs"]
+    in_span = [(i, j) for i, j in cand if half <= j < n]
+    out_span = [(i, j) for i, j in cand if j < half]
+    assert in_span and out_span
+    for _, j in in_span:
+        assert captured["col_blob"][j] is captured["row_blob"][j - half]
+    for _, j in out_span:
+        assert captured["col_blob"][j] == blobs[j]
+
+
+def _boundary_pair(rng):
+    """Leader distance exactly 31 + 2*24 = 79 between two 2-frame videos
+    whose frames a, b sit at distance 31 (disjoint flips add exactly)."""
+    used: set = set()
+    c_a = rng.integers(0, 256, 32, dtype=np.uint8)
+    a = _flip(rng, c_a, 24, used)
+    b = _flip(rng, a, 31, used)
+    c_b = _flip(rng, b, 24, used)
+    return [np.stack([c_a, a]).tobytes(), np.stack([c_b, b]).tobytes()]
+
+
+def test_triangle_bound_boundary_and_radius_cap_invalidation(rng):
+    blobs = _boundary_pair(rng)
+    want = sorted(TpuSearchEngine(force_segments=True).find_pairs(blobs, blobs, 1))
+    assert (0, 1, 50) in want
+    engine = _port()
+    state: dict = {}
+    assert sorted(engine.find_pairs_pruned(blobs, blobs, 1, col_state=state, radius_cap=24)) == want
+    staged = state["prune"]["seg_cols"]
+    # same state, smaller cap: the cap-24 reps and their staging are rebuilt
+    assert sorted(engine.find_pairs_pruned(blobs, blobs, 1, col_state=state, radius_cap=8)) == want
+    assert state["prune"]["rep_cols_radius_cap"] == 8
+    assert state["prune"]["seg_cols"] is not staged
+
+
+def test_state_from_jax_sweeps_from_the_same_reps(corpus, monkeypatch):
+    """A JAX engine's host-side rep cache carried into the port: the port
+    sweeps from exactly those reps (no re-clustering) and finds the same
+    pairs."""
+    from hydrus_video_deduplicator_tpu.ops import reps as reps_mod
+
+    blobs, brute, _ = corpus
+    jax_state: dict = {}
+    TpuSearchEngine(force_segments=True).find_pairs_pruned(blobs, blobs, 60, col_state=jax_state)
+    state = eng.state_from_jax(jax_state)
+    assert state["prune"]["rep_cols"] == jax_state["prune"]["rep_cols"]
+    assert state["prune"]["rep_cols_radius_cap"] == jax_state["prune"]["rep_cols_radius_cap"]
+
+    def no_clustering(*_a, **_k):
+        raise AssertionError("the port re-clustered the reps")
+
+    monkeypatch.setattr(reps_mod, "extract_reps", no_clustering)
+    got = sorted(_port().find_pairs_pruned(blobs, blobs, 60, col_state=state, rows_at=0))
+    assert got == [h for h in brute if h[2] >= 60]
+
+
+def test_drain_decode_word_w_bit_b_is_row_slot_32w_plus_b(rng):
+    """Pins the mask layout the drain decodes: bit b of the word at [w, c]
+    is row slot 32w+b, column slot c — against a dense bit-by-bit unpack,
+    as the JAX suite pins its sparse and dense drain paths together."""
+    masks = np.zeros((16, 300), dtype=np.uint32)
+    want = set()
+    for _ in range(400):
+        rs, cs = int(rng.integers(0, 512)), int(rng.integers(0, 300))
+        masks[rs // 32, cs] |= np.uint32(1) << np.uint32(rs % 32)
+        want.add((rs, cs))
+    masks[3, 7] = 0xFFFFFFFF  # bit 31 makes the int32 word negative
+    want |= {(96 + b, 7) for b in range(32)}
+    words = masks.view(np.int32)
+    w, c = np.nonzero(words)
+    rows, cols = eng.decode_mask_hits(w, c, words[w, c])
+    assert set(zip(rows.tolist(), cols.tolist())) == want
+    dense = {
+        (32 * wi + b, ci)
+        for wi in range(16)
+        for ci in range(300)
+        for b in range(32)
+        if (int(masks[wi, ci]) >> b) & 1
+    }
+    assert dense == want
+
+
+def test_drain_dense_clump_and_progress(rng):
+    """A dense clump of identical videos (many bits per word) drains
+    exactly, and progress runs to completion."""
+    base = rng.integers(0, 256, (2, 32), dtype=np.uint8).tobytes()
+    vids = [base] * 40 + [
+        rng.integers(0, 256, (int(c), 32), dtype=np.uint8).tobytes()
+        for c in rng.integers(1, 9, 30)
+    ]
+    want = sorted(TpuSearchEngine(force_segments=False).find_pairs(vids, vids, 75))
+    events = []
+    got = sorted(
+        _port().find_pairs_pruned(vids, vids, 75, progress=lambda d, t: events.append((d, t)))
+    )
+    assert got == want and len(got) >= 1600
+    assert events and events[-1][0] == events[-1][1]
+
+
+def test_engine_keeps_tensors_on_its_device(corpus):
+    blobs, _, _ = corpus
+    engine = _port()
+    state: dict = {}
+    engine.find_pairs_pruned(blobs, blobs, 50, col_state=state)
+    staged = state["prune"]["seg_cols"]
+    assert staged["words"].device == torch.device("cpu")
+    assert staged["words"].dtype == torch.int32
+    assert staged["words"].shape == (staged["n_steps"] * seg.STEP_FRAMES, 8)
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_engine_on_cuda_equals_jax(corpus, cuda_device):
+    """On the card: the sweep kernel, fp16 verify and the fp16 bucketed
+    complements give the JAX pair sets, chunked triangle included."""
+    blobs, brute, _ = corpus
+    engine = GpuSearchEngine(device=cuda_device)
+    before = seg.LAUNCHES["exists_mask_sweep"]
+    assert sorted(engine.find_pairs_pruned(blobs, blobs, 1)) == brute
+    assert seg.LAUNCHES["exists_mask_sweep"] > before
+    assert sorted(engine.find_pairs(blobs, blobs, 1)) == brute
+    n, half = len(blobs), len(blobs) // 2
+    state: dict = {}
+    got = engine.find_pairs_pruned(blobs[:half], blobs, 20, col_state=state, col_limit=half, rows_at=0)
+    got += [
+        (i + half, j, s)
+        for i, j, s in engine.find_pairs_pruned(
+            blobs[half:], blobs, 20, col_state=state, col_limit=n, rows_at=half
+        )
+    ]
+    want = [h for h in brute if h[2] >= 20 and (h[0] >= half or h[1] < half)]
+    assert sorted(got) == want

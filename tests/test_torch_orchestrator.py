@@ -1,0 +1,100 @@
+"""The port's CLI ``main()`` end to end against the fake Hydrus server:
+native hashing, stage 2, maintenance, the pruned search (through the plain
+PyTorch versions on the CPU) and pair marking, against the JAX package's
+``main()`` on the same corpus."""
+
+from __future__ import annotations
+
+import uuid
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+
+from hydrus_video_deduplicator_tpu import entrypoint as jax_entrypoint
+from hydrus_video_deduplicator_tpu_torch import dedup as port_dedup
+from hydrus_video_deduplicator_tpu_torch import entrypoint
+
+from .fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus, corpus_file_store
+
+#: scene_b (6 encodings) + scene_d (5) + two files that match nothing:
+#: C(6,2) + C(5,2) = 25 pairs, at a fraction of the full corpus's hashing
+SUBSET = ("scene_b/", "scene_d/", "strange/one_frame.gif", "strange/mono.y4m")
+SUBSET_PAIRS = 25
+
+
+def _subset_store() -> dict[str, bytes]:
+    from .fake_hydrus import sha256_hex
+
+    videos = Path(__file__).parent / "corpus" / "videos"
+    store = {}
+    for vid in sorted(videos.rglob("*")):
+        rel = vid.relative_to(videos).as_posix()
+        if vid.is_file() and rel.startswith(SUBSET):
+            data = vid.read_bytes()
+            store[sha256_hex(data)] = data
+    assert len(store) == 13 and set(store) <= set(corpus_file_store())
+    return store
+
+
+def _run(main, store, db_dir, **kwargs):
+    server = FakeHydrus(store)
+    server.start()
+    try:
+        pairs = main(
+            api_key=DEFAULT_ACCESS_KEY,
+            api_url=server.url,
+            dedup_database_dir=Path(db_dir),
+            search_prefilter="reps",
+            **kwargs,
+        )
+        return pairs, set(server.relationships), server
+    finally:
+        server.stop()
+
+
+def test_port_cli_marks_the_jax_pair_set_and_reruns_empty(tmp_path):
+    store = _subset_store()
+    jax_pairs, jax_rel, _ = _run(
+        jax_entrypoint.main, store, tmp_path / uuid.uuid4().hex, search_backend="tpu"
+    )
+    db = tmp_path / uuid.uuid4().hex
+    pairs, rel, _ = _run(entrypoint.main, store, db, search_backend="gpu", device="cpu")
+    assert pairs == jax_pairs == SUBSET_PAIRS
+    assert rel == jax_rel and len(rel) == SUBSET_PAIRS
+    # re-run on the same database: nothing new to hash or search
+    pairs2, _, server = _run(entrypoint.main, store, db, search_backend="gpu", device="cpu")
+    assert pairs2 == 0
+    assert "/get_files/file" not in server.requests_seen
+
+
+def test_port_cli_spelling_and_unported_paths(tmp_path):
+    store = _subset_store()
+    with pytest.raises(SystemExit):  # the JAX spelling is not the port's
+        _run(entrypoint.main, store, tmp_path / "a", search_backend="tpu", device="cpu")
+    with pytest.raises(SystemExit):  # --rerank clip waits on the vision tower
+        _run(entrypoint.main, store, tmp_path / "b", rerank="clip", device="cpu")
+
+
+def test_backend_choices_map_onto_the_base_class():
+    D = port_dedup.HydrusVideoDeduplicator
+
+    def ns(search="auto", hash_="auto", device=None):
+        return SimpleNamespace(
+            threshold=50.0,
+            search_backend=port_dedup._INTERNAL_BACKEND[search],
+            hash_backend=port_dedup._INTERNAL_BACKEND[hash_],
+            device=device,
+            TPU_ENGINE_MIN_BATCH=D.TPU_ENGINE_MIN_BATCH,
+            TPU_HASH_MIN_BATCH=D.TPU_HASH_MIN_BATCH,
+        )
+
+    assert D._pick_search_backend(ns("gpu"), 1) == "tpu"  # the base's internal value
+    assert D._pick_search_backend(ns("tree"), 10_000) == "tree"
+    assert D._pick_search_backend(ns(device="cpu"), D.TPU_ENGINE_MIN_BATCH) == "tpu"
+    assert D._pick_search_backend(ns(device="cpu"), D.TPU_ENGINE_MIN_BATCH - 1) == "tree"
+    assert D._pick_hash_backend(ns(hash_="auto"), 10_000) == "native"
+    assert D._pick_hash_backend(ns(hash_="native"), 1) == "native"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        D._pick_hash_backend(ns(hash_="gpu"), 1)
+    assert D._device_mesh() is None
