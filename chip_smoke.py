@@ -1,34 +1,57 @@
-"""Builds the port's CUDA kernel and drives its main path on one GPU.
+"""Builds the port's CUDA kernels and drives its main paths on one GPU.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; nothing is caught):
 
 0. build: prints the card's name and power limit, the torch and CUDA
-   versions, and the nvcc build of csrc/exists_mask_sweep.cu (time and
-   the compiler's register/shared-memory report);
-1. kernel against its plain PyTorch version on the card, bit for bit, at
-   the main path's shapes: one row tile of 2 row blocks of scene leaders
-   against the whole column corpus of leaders of the seed-7 scene library,
-   tolerances 79 and 31, all-zero padding frames, an all-zero real frame
-   and some invalid steps; both timed with CUDA events;
-2. the real size through the orchestrator: the seed-7 mean-71 scene library
-   of N videos (artifacts/sweep_scenes.build_corpus, as
+   versions, and the nvcc builds of csrc/exists_mask_sweep.cu and
+   csrc/pdq_filter.cu, started together (time and the compiler's
+   register/shared-memory report of each);
+1. sweep kernel against its plain PyTorch version on the card, bit for
+   bit, at the main path's shapes: one row tile of 2 row blocks of scene
+   leaders against the whole column corpus of leaders of the seed-7 scene
+   library, tolerances 79 and 31, all-zero padding frames, an all-zero real
+   frame and some invalid steps; both timed with CUDA events;
+2. stage 4 at real size through the orchestrator: the seed-7 mean-71 scene
+   library of N videos (artifacts/sweep_scenes.build_corpus, as
    artifacts/library_1m_fresh.py builds it) queued into a fresh database,
    stage 2, maintenance and deduplicate(skip_hashing=True) with the port's
    HydrusVideoDeduplicator against a fake Hydrus server: the marked set
    must equal the planted set, the search cache must be fully marked, a
    re-run must mark 0, and the sweep kernel must have launched;
 3. the CLI, ``python -m hydrus_video_deduplicator_tpu_torch`` (run in this
-   process, so its kernel launches are counted), on the test corpus with
-   native hashing: once with --search-backend gpu --search-prefilter reps,
-   once with --search-backend tree in a fresh database; the two marked
-   pair sets must be equal and non-empty.
+   process, so its kernel launches are counted), on the test corpus: with
+   --hash-backend native --search-backend gpu --search-prefilter reps,
+   with --search-backend tree in a fresh database, and with --hash-backend
+   gpu --search-backend gpu --search-prefilter reps in a third; the three
+   marked pair sets must be equal and non-empty, and each gpu run must
+   have launched its kernels;
+4. PDQ filter kernel against its plain PyTorch version on the card: one
+   batch of 512 planar frames (noise, smooth gradients, constant, all-0,
+   all-255 and frames decoded from tests/corpus/videos, from a numpy
+   seed) bit for bit, the fused hash (kernel + PyTorch tail) against the
+   numpy oracle on 64 of them, both filters timed with CUDA events;
+5. stage 1 at real size through the orchestrator: 10,000 MJPG videos (5,000
+   scenes x 2 versions, the second with +-6 noise; 16 s at 1 fps, so
+   160,000 hashed frames; the corpus shape of artifacts/bench_e2e.py)
+   served by the fake Hydrus server, deduplicate(skip_hashing=False) with
+   hash_backend="gpu", search_backend="gpu" and search_prefilter="reps"
+   (exact; "auto" would decline on this frame profile and take the
+   unpruned route, whose TPU kernel is not ported yet): no file may fail,
+   1,000 sampled queued hashes must equal hashing.compute_phash of the
+   same bytes, the marked set must equal the 5,000 planted pairs (or, if
+   the scenes match each other, a native-hash run's marked set), a re-run
+   must fetch no file and mark 0, and both the PDQ kernel and the sweep
+   kernel must have launched. It also prints one decode thread's
+   per-frame split on this host (the backend's decode, the 512x512
+   rescale, the planar transpose) over 50 of the videos.
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script exits non-zero and prints no
-result. ``python3 chip_smoke.py N`` sets the library size (default 100000).
+result. ``python3 chip_smoke.py N`` sets the phase-2 library size (default
+100000).
 """
 
 from __future__ import annotations
@@ -40,12 +63,26 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_VIDEOS = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
 THRESHOLD = 75.0
-KERNEL_SOURCE = "hydrus_video_deduplicator_tpu_torch/csrc/exists_mask_sweep.cu"
-REPLACES = "hydrus_video_deduplicator_tpu/ops/similarity_segments.py:466"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "exists_mask_sweep": (
+        "hydrus_video_deduplicator_tpu_torch/csrc/exists_mask_sweep.cu",
+        "hydrus_video_deduplicator_tpu/ops/similarity_segments.py:466",
+    ),
+    "pdq_filter": (
+        "hydrus_video_deduplicator_tpu_torch/csrc/pdq_filter.cu",
+        "hydrus_video_deduplicator_tpu/ops/pdq_pallas.py:113",
+    ),
+}
+#: phase 5: scenes (two versions each), seconds per video at 1 fps, side
+STAGE1_SCENES = 5_000
+STAGE1_SECONDS = 16
+STAGE1_DIM = 128
+STAGE1_SAMPLE = 1_000
 
 
 def log(msg: str) -> None:
@@ -82,15 +119,20 @@ def phase0_build():
 
     log(f"card: {card_line()}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    so = _build.library_path()
-    log(f"kernel build (nvcc, sm_90a): {time.perf_counter() - t0:.3f} s -> {os.path.relpath(so, ROOT)}")
-    report = so.with_suffix(".log")
-    if report.is_file():
-        for line in report.read_text().splitlines():
+
+    def build(name):
+        t0 = time.perf_counter()
+        so = _build.library_path(name)
+        return so, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
+        built = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    for name, (so, sec) in built.items():
+        log(f"kernel build {name} (nvcc, sm_90a): {sec:.3f} s -> {os.path.relpath(so, ROOT)}")
+        for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
-    _build.load_library()
+        _build.load_library(name)
 
 
 def build_library():
@@ -186,10 +228,10 @@ class StageTimers:
         setattr(owner, name, timed)
         self._restore.append((owner, name, real))
 
-    def wrap_kernel(self, module):
+    def wrap_kernel(self, module, name: str):
         import torch
 
-        real = module.exists_mask_sweep
+        real = getattr(module, name)
 
         def launched(*args):
             start = torch.cuda.Event(enable_timing=True)
@@ -200,8 +242,20 @@ class StageTimers:
             self.events.append((start, end))
             return out
 
-        module.exists_mask_sweep = launched
-        self._restore.append((module, "exists_mask_sweep", real))
+        setattr(module, name, launched)
+        self._restore.append((module, name, real))
+
+    def capture(self, owner, name: str, sink: list):
+        """Wrap a method so each instance it runs on is appended to sink."""
+        real = getattr(owner, name)
+
+        def method(obj, *args, **kwargs):
+            if obj not in sink:
+                sink.append(obj)
+            return real(obj, *args, **kwargs)
+
+        setattr(owner, name, method)
+        self._restore.append((owner, name, real))
 
     def restore(self):
         for owner, name, real in reversed(self._restore):
@@ -269,7 +323,7 @@ def phase2_orchestrator(blobs, expected, n_empty, min_sim):
             timers.wrap(GpuSearchEngine, "_stage_columns", "column staging")
             timers.wrap(GpuSearchEngine, "_segment_route", "stage A (sweep + drain)")
             timers.wrap(pair_verify, "verify_pairs", "stage B (verify)")
-            timers.wrap_kernel(seg)
+            timers.wrap_kernel(seg, "exists_mask_sweep")
             seg.LAUNCHES["exists_mask_sweep"] = 0
             t0 = time.perf_counter()
             try:
@@ -319,6 +373,7 @@ def phase2_orchestrator(blobs, expected, n_empty, min_sim):
 
 
 def phase3_cli():
+    from hydrus_video_deduplicator_tpu_torch.ops import pdq_filter
     from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
     from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus, corpus_file_store
 
@@ -330,6 +385,9 @@ def phase3_cli():
             "hydrus_video_deduplicator_tpu_torch", "--api-key", DEFAULT_ACCESS_KEY,
             "--api-url", server.url, "--dedup-database-dir", db_dir, *backend_args,
         ]
+        seg.LAUNCHES["exists_mask_sweep"] = 0
+        pdq_filter.LAUNCHES["pdq_filter"] = 0
+        t0 = time.perf_counter()
         try:
             runpy.run_module("hydrus_video_deduplicator_tpu_torch", run_name="__main__")
         except SystemExit as exc:  # click's normal exit; a failure re-raises
@@ -338,23 +396,322 @@ def phase3_cli():
         finally:
             sys.argv = argv
             server.stop()
-        return set(server.relationships)
+        launches = (seg.LAUNCHES["exists_mask_sweep"], pdq_filter.LAUNCHES["pdq_filter"])
+        return set(server.relationships), time.perf_counter() - t0, launches
 
+    gpu_args = ["--search-backend", "gpu", "--search-prefilter", "reps"]
     with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_cli_") as tmp:
-        seg.LAUNCHES["exists_mask_sweep"] = 0
-        t0 = time.perf_counter()
-        gpu = run(["--search-backend", "gpu", "--search-prefilter", "reps"], os.path.join(tmp, "gpu"))
-        t_gpu = time.perf_counter() - t0
-        launches = seg.LAUNCHES["exists_mask_sweep"]
-        t0 = time.perf_counter()
-        tree = run(["--search-backend", "tree"], os.path.join(tmp, "tree"))
-        t_tree = time.perf_counter() - t0
+        gpu, t_gpu, l_gpu = run(["--hash-backend", "native", *gpu_args], os.path.join(tmp, "gpu"))
+        tree, t_tree, _ = run(["--search-backend", "tree"], os.path.join(tmp, "tree"))
+        ghash, t_ghash, l_ghash = run(["--hash-backend", "gpu", *gpu_args], os.path.join(tmp, "ghash"))
     log(
-        f"phase 3: CLI gpu marked {len(gpu)} pairs in {t_gpu:.1f} s (kernel launches "
-        f"{launches}); CLI tree marked {len(tree)} pairs in {t_tree:.1f} s"
+        f"phase 3: CLI native hash + gpu search marked {len(gpu)} pairs in {t_gpu:.1f} s "
+        f"(sweep launches {l_gpu[0]}); CLI tree marked {len(tree)} pairs in {t_tree:.1f} s; "
+        f"CLI gpu hash + gpu search marked {len(ghash)} pairs in {t_ghash:.1f} s (sweep "
+        f"launches {l_ghash[0]}, pdq_filter launches {l_ghash[1]})"
     )
-    if gpu != tree or not gpu or launches == 0:
+    if gpu != tree or not gpu or l_gpu[0] == 0:
         raise AssertionError("phase 3: gpu and tree pair sets differ, or are empty")
+    if ghash != gpu or l_ghash[0] == 0 or l_ghash[1] == 0:
+        raise AssertionError("phase 3: the gpu-hash run differs from the native-hash run")
+
+
+def pdq_test_frames(n: int = 512):
+    """[n, 512, 512, 3] uint8 frames from numpy seed 11 and the test corpus,
+    with the kind of each."""
+    import numpy as np
+
+    from hydrus_video_deduplicator_tpu.decode import extract_frames
+
+    rng = np.random.default_rng(11)
+    frames, kinds = [], []
+
+    def add(kind, fs):
+        frames.extend(fs)
+        kinds.extend([kind] * len(fs))
+
+    videos = os.path.join(ROOT, "tests", "corpus", "videos")
+    corpus = []
+    for scene in sorted(os.listdir(videos)):
+        if not scene.startswith("scene_"):
+            continue
+        for name in sorted(os.listdir(os.path.join(videos, scene))):
+            corpus.extend(list(extract_frames(os.path.join(videos, scene, name)))[:3])
+    add("corpus", corpus[:128])
+    x = np.linspace(0, 255, 512)
+    ramp = np.add.outer(x, x) / 2
+    add("smooth", [
+        np.stack([np.roll(ramp, 7 * i, axis=i % 2)] * 3, -1).astype(np.uint8) for i in range(48)
+    ])
+    add("smooth+noise", [
+        np.clip(ramp[..., None] + rng.normal(0, 4 + i, (512, 512, 3)), 0, 255).astype(np.uint8)
+        for i in range(48)
+    ])
+    add("constant", [np.full((512, 512, 3), v, np.uint8) for v in rng.integers(1, 255, 24)])
+    add("all-0", [np.zeros((512, 512, 3), np.uint8)] * 8)
+    add("all-255", [np.full((512, 512, 3), 255, np.uint8)] * 8)
+    add("noise", list(rng.integers(0, 256, (n - len(frames), 512, 512, 3), dtype=np.uint8)))
+    return np.stack(frames), kinds
+
+
+def phase4_pdq_kernel_vs_plain(dev):
+    import numpy as np
+    import torch
+
+    from hydrus_video_deduplicator_tpu.vpdq import python_ref
+    from hydrus_video_deduplicator_tpu_torch.models import pdq as mpdq
+    from hydrus_video_deduplicator_tpu_torch.ops import pdq_filter
+
+    t0 = time.perf_counter()
+    frames, kinds = pdq_test_frames()
+    x = torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2))).to(dev)
+    counts = {k: kinds.count(k) for k in dict.fromkeys(kinds)}
+    log(f"phase 4 inputs: {x.shape[0]} planar frames {counts}; "
+        f"{time.perf_counter() - t0:.1f} s to build")
+    got = pdq_filter.pdq_filter_batch(x)
+    want = pdq_filter.pdq_filter_batch_plain(x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"phase 4: kernel != plain: max abs error {err}")
+    words, quality = pdq_filter.pdq_hash_batch_fused(x)
+    blobs = mpdq.words_to_blobs(words.cpu().numpy())
+    quality = quality.cpu().numpy()
+    checked = range(0, x.shape[0], 8)  # 64 frames across every kind
+    for i in checked:
+        want_blob, want_q = python_ref.pdq_hash_frame(frames[i])
+        if blobs[i] != want_blob or int(quality[i]) != want_q:
+            raise AssertionError(f"phase 4: frame {i} ({kinds[i]}) hash differs from the oracle")
+    plain_words, plain_quality = mpdq.pdq_hash_batch(torch.from_numpy(frames).to(dev))
+    if not (torch.equal(plain_words, words) and torch.equal(plain_quality.cpu(), torch.from_numpy(quality))):
+        raise AssertionError("phase 4: the fused hash differs from the plain hash")
+    ms = cuda_time_ms(lambda: pdq_filter.pdq_filter_batch(x), 20)
+    plain_ms = cuda_time_ms(lambda: pdq_filter.pdq_filter_batch_plain(x), 3)
+    hash_ms = cuda_time_ms(lambda: pdq_filter.pdq_hash_batch_fused(x), 5)
+    log(
+        f"phase 4: kernel bit-equal to plain on {x.shape[0]} frames, fused hash == oracle on "
+        f"{len(checked)} frames and == plain hash on all; B={x.shape[0]}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, fused hash (kernel + tail) {hash_ms:.4f} ms"
+    )
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def build_stage1_store():
+    """{sha256: MJPG AVI bytes} of STAGE1_SCENES scenes x 2 versions, with
+    (scene, version) per hash."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from tests.fake_hydrus import sha256_hex
+    from tests.make_corpus import scene_frames, write_avi_mjpg
+
+    def scene(s, workdir):
+        frames = scene_frames(1000 + s, STAGE1_SECONDS, STAGE1_DIM, STAGE1_DIM)
+        r = np.random.default_rng(7 * 100_000 + s)
+        noisy = [
+            np.clip(f.astype(np.int16) + r.integers(-6, 6, f.shape), 0, 255).astype(np.uint8)
+            for f in frames
+        ]
+        out = []
+        for version, fs in enumerate((frames, noisy)):
+            path = Path(workdir) / f"v_{s}_{version}.avi"
+            if not write_avi_mjpg(path, fs, fps=1):
+                raise RuntimeError("OpenCV cannot write MJPG AVI files here")
+            out.append((s, version, path.read_bytes()))
+            path.unlink()
+        return out
+
+    store, label = {}, {}
+    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_avi_") as workdir:
+        with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+            for videos in pool.map(lambda s: scene(s, workdir), range(STAGE1_SCENES)):
+                for s, version, data in videos:
+                    h = sha256_hex(data)
+                    store[h], label[h] = data, (s, version)
+    if len(store) != 2 * STAGE1_SCENES:
+        raise AssertionError("phase 5: two generated videos have the same bytes")
+    return store, label
+
+
+def host_frame_split(videos) -> tuple[str, dict[str, float], int]:
+    """One decode thread's per-frame ms on this host, step by step, as the
+    hasher's decode workers run them: the backend's decode (with its own
+    512x512 rescale if it makes one), resize_nearest_512, the planar
+    transpose. Every frame is a 1 fps sample here, so each one counts."""
+    import numpy as np
+
+    from hydrus_video_deduplicator_tpu.decode import backends
+    from hydrus_video_deduplicator_tpu.decode.frames import resize_nearest_512
+
+    ms = {"decode": 0.0, "resize": 0.0, "transpose": 0.0}
+    n, name = 0, ""
+    for data in videos:
+        backend = backends.choose_backend(data, None)
+        name = type(backend).__name__
+        frames = backend.decode(data, None)
+        while True:
+            t0 = time.perf_counter()
+            raw = next(frames, None)
+            t1 = time.perf_counter()
+            if raw is None:
+                break
+            f = raw[0] if backend.emits_sampled_512 else resize_nearest_512(raw[0])
+            t2 = time.perf_counter()
+            np.ascontiguousarray(f.transpose(2, 0, 1))
+            t3 = time.perf_counter()
+            ms["decode"] += t1 - t0
+            ms["resize"] += t2 - t1
+            ms["transpose"] += t3 - t2
+            n += 1
+    return name, {k: 1e3 * v / max(n, 1) for k, v in ms.items()}, n
+
+
+def phase5_stage1():
+    import numpy as np
+    import torch
+
+    import hydrus_video_deduplicator_tpu.db.DedupeDB as DedupeDB
+    from hydrus_video_deduplicator_tpu import hashing
+    from hydrus_video_deduplicator_tpu.client import HVDClient
+    from hydrus_video_deduplicator_tpu_torch import dedup
+    from hydrus_video_deduplicator_tpu_torch.models.vpdq import GpuVideoHasher
+    from hydrus_video_deduplicator_tpu_torch.ops import pdq_filter
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+    from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
+
+    t0 = time.perf_counter()
+    store, label = build_stage1_store()
+    mb = sum(map(len, store.values())) / 1e6
+    log(f"phase 5 corpus: {len(store)} MJPG videos ({mb:.1f} MB), "
+        f"{time.perf_counter() - t0:.1f} s to build")
+    planted = {(s, s) for s in range(STAGE1_SCENES)}
+
+    def marked(server):
+        return {tuple(sorted(label[h][0] for h in pair)) for pair in server.relationships}
+
+    def fresh_run(hash_backend: str, workdir: str):
+        server = FakeHydrus(store)
+        server.start()
+        DedupeDB.set_db_dir(workdir)
+        DedupeDB.create_db()
+        db = DedupeDB.DedupeDb(DedupeDB.get_db_dir(), DedupeDB.get_db_name())
+        db.init_connection()
+        client = HVDClient(None, server.url, DEFAULT_ACCESS_KEY, None)
+        deduper = dedup.HydrusVideoDeduplicator(
+            db, client=client, hash_backend=hash_backend, search_backend="gpu",
+            search_prefilter="reps",
+        )
+        deduper.threshold = THRESHOLD
+        return server, db, deduper
+
+    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_s1_") as workdir:
+        server, db, deduper = fresh_run("gpu", os.path.join(workdir, "gpu"))
+        try:
+            queued: dict[str, bytes] = {}
+            add_to_queue = db.add_to_phashed_files_queue
+
+            def record(file_hash, phash):
+                queued[file_hash] = phash
+                return add_to_queue(file_hash, phash)
+
+            db.add_to_phashed_files_queue = record
+            stage1: dict = {}
+            add_hashes = deduper.add_perceptual_hashes_to_db
+
+            def timed_stage1(video_hashes):
+                t = time.perf_counter()
+                stats = add_hashes(video_hashes)
+                torch.cuda.synchronize()
+                stage1["seconds"], stage1["stats"] = time.perf_counter() - t, stats
+                return stats
+
+            deduper.add_perceptual_hashes_to_db = timed_stage1
+            timers, hashers = StageTimers(), []
+            timers.wrap_kernel(pdq_filter, "pdq_filter_batch")
+            timers.capture(GpuVideoHasher, "hash_videos", hashers)
+            seg.LAUNCHES["exists_mask_sweep"] = 0
+            pdq_filter.LAUNCHES["pdq_filter"] = 0
+            t0 = time.perf_counter()
+            try:
+                pairs = deduper.deduplicate(skip_hashing=False)
+            finally:
+                timers.restore()
+            t_all = time.perf_counter() - t0
+            launches = pdq_filter.LAUNCHES["pdq_filter"]
+            sweeps = seg.LAUNCHES["exists_mask_sweep"]
+
+            stats = stage1["stats"]
+            failed = stats.failed_from_api_errors_count + stats.failed_from_phash_count
+            n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
+            hs = hashers[0].stats
+            sec = stage1["seconds"]
+            log(
+                f"phase 5: stage 1 hashed {stats.success_hash_count} videos, {failed} failed, "
+                f"{hs['frames']} frames in {hs['batches']} device batches; files in the "
+                f"database {n_files}; pdq_filter launches {launches}, sweep launches {sweeps}"
+            )
+            log(
+                f"phase 5 stage 1: {sec:.3f} s, {hs['frames'] / sec:.1f} hashed frames/s; "
+                f"kernel device time {timers.kernel_ms():.3f} ms over {len(timers.events)} "
+                f"launches; {hs['hash_s']:.3f} s inside the hasher, whose batch loop waited "
+                f"{hs['decode_wait_s']:.3f} s on decode ({100 * hs['decode_wait_s'] / sec:.1f} % "
+                f"of stage 1) and {hs['device_wait_s']:.3f} s on the device "
+                f"({100 * hs['device_wait_s'] / sec:.1f} %); whole deduplicate() {t_all:.3f} s"
+            )
+            if failed or stats.success_hash_count != len(store) or n_files != len(store):
+                raise AssertionError("phase 5: a file failed to hash or was not stored")
+            if launches == 0:
+                raise AssertionError("phase 5: the PDQ filter kernel never launched")
+            if sweeps == 0:
+                raise AssertionError("phase 5: the sweep kernel never launched")
+
+            sample = sorted(np.random.default_rng(3).choice(sorted(store), STAGE1_SAMPLE, replace=False))
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+                refs = list(pool.map(lambda h: hashing.compute_phash(store[h], 1).bytes, sample))
+            bad = [h for h, ref in zip(sample, refs) if queued[h] != ref]
+            log(f"phase 5: {len(sample)} sampled queued hashes vs compute_phash: {len(bad)} "
+                f"differ ({time.perf_counter() - t0:.1f} s)")
+            if bad:
+                raise AssertionError(f"phase 5: {len(bad)} queued hashes differ from compute_phash")
+            backend, split, n_split = host_frame_split([store[h] for h in sample[:50]])
+            log(f"phase 5 host split, one thread, {n_split} frames of {STAGE1_DIM}x{STAGE1_DIM} "
+                f"MJPG ({backend}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+                + " per frame")
+
+            got = marked(server)
+            if got == planted and pairs == len(planted):
+                held = "the planted set"
+            else:  # the synthetic scenes match each other: hold to native hashing
+                n_server, n_db, n_deduper = fresh_run("native", os.path.join(workdir, "native"))
+                try:
+                    n_deduper.deduplicate(skip_hashing=False)
+                    native = marked(n_server)
+                finally:
+                    n_server.stop()
+                    n_db.close()
+                held = "the native-hash run's set"
+                if got != native:
+                    raise AssertionError(
+                        f"phase 5: marked {len(got)} pairs; planted {len(planted)}, native "
+                        f"{len(native)}: neither equal"
+                    )
+            log(f"phase 5: marked {len(got)} pairs, reported {pairs}; equal to {held} "
+                f"(missing from planted {len(planted - got)}, extras {len(got - planted)})")
+
+            server.requests_seen.clear()
+            t0 = time.perf_counter()
+            pairs2 = deduper.deduplicate(skip_hashing=False)
+            fetched = server.requests_seen.count("/get_files/file")
+            log(f"phase 5 re-run: {time.perf_counter() - t0:.3f} s, marked {pairs2}, "
+                f"fetched {fetched} files")
+            if pairs2 != 0 or fetched:
+                raise AssertionError("phase 5: the re-run fetched files or marked pairs")
+        finally:
+            server.stop()
+            db.close()
+    return launches
 
 
 def main() -> int:
@@ -369,24 +726,40 @@ def main() -> int:
     phase0_build()
     blobs, expected, n_empty, min_sim = build_library()
     timing = phase1_kernel_vs_plain(blobs, dev)
-    launches = phase2_orchestrator(blobs, expected, n_empty, min_sim)
+    sweep_launches = phase2_orchestrator(blobs, expected, n_empty, min_sim)
     del blobs
     phase3_cli()
+    pdq_timing = phase4_pdq_kernel_vs_plain(dev)
+    pdq_launches = phase5_stage1()
     if "jax" in sys.modules:
         raise AssertionError("the port's main path imported jax")
 
+    measured = {
+        "exists_mask_sweep": (
+            sweep_launches,
+            max(t["max_abs_err"] for t in timing.values()),
+            timing[79]["ms"],
+            timing[79]["plain_ms"],
+        ),
+        "pdq_filter": (
+            pdq_launches, pdq_timing["max_abs_err"], pdq_timing["ms"], pdq_timing["plain_ms"]
+        ),
+    }
     print(card_line())
     print(json.dumps({
-        "kernels": [{
-            "name": "exists_mask_sweep",
-            "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": REPLACES,
-            "launches": launches,
-            "max_abs_err": max(t["max_abs_err"] for t in timing.values()),
-            "ms": timing[79]["ms"],
-            "plain_ms": timing[79]["plain_ms"],
-        }]
+        "kernels": [
+            {
+                "name": name,
+                "route": "cuda",
+                "source": KERNELS[name][0],
+                "replaces": KERNELS[name][1],
+                "launches": launches,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+            }
+            for name, (launches, err, ms, plain_ms) in measured.items()
+        ]
     }))
     print(json.dumps({
         "ok": True,

@@ -2,9 +2,10 @@
 
 Subclasses the JAX package's ``HydrusVideoDeduplicator`` and overrides only
 the touch points that reach JAX: the device mesh, the stage-1 and stage-4
-backend choice, the stage-4 prefilter decision, and the stage-4 search
-itself, which runs ``GpuSearchEngine`` with the reference's checkpointing,
-marking and search-cache semantics unchanged.
+backend choice and the link probe behind it, the device hashing of stage 1
+(``GpuVideoHasher``), the stage-4 prefilter decision, and the stage-4
+search itself (``GpuSearchEngine``), each with the reference's failure,
+checkpointing, marking and search-cache semantics unchanged.
 
 The base class spells the device backend ``"tpu"``; the port's CLI spells
 it ``"gpu"``. ``_INTERNAL_BACKEND`` maps one onto the other, in the
@@ -13,10 +14,19 @@ constructor only.
 
 from __future__ import annotations
 
+import functools
+import gc
 import logging
 import os
 import sqlite3
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+try:
+    from rich import print
+except ImportError:  # pragma: no cover
+    pass
 
 import numpy as np
 import torch
@@ -27,6 +37,8 @@ from hydrus_video_deduplicator_tpu.db import DedupeDB, vptree
 from hydrus_video_deduplicator_tpu.db.blobs import DbBlobColumn, fetch_blobs
 from hydrus_video_deduplicator_tpu.ops import reps as reps_mod
 
+from ._device import resolve_device
+from .models.vpdq import GpuVideoHasher
 from .ops import similarity_segments as seg
 from .parallel.engine import GpuSearchEngine, blob_frame_counts, iter_blob_items
 
@@ -40,9 +52,8 @@ class HydrusVideoDeduplicator(base.HydrusVideoDeduplicator):
     """The orchestrator with stage 4 on ``GpuSearchEngine``.
 
     search_backend: "auto" | "tree" | "gpu"; hash_backend: "auto" |
-    "native" (the device hasher waits on the PDQ-filter kernel port);
-    device: the engine's torch device — None is CUDA, and the engine raises
-    without it; tests pass "cpu".
+    "native" | "gpu"; device: the torch device of the hasher and the
+    engine — None is CUDA, and both raise without it; tests pass "cpu".
     """
 
     def __init__(
@@ -80,17 +91,157 @@ class HydrusVideoDeduplicator(base.HydrusVideoDeduplicator):
         """One device: the multi-GPU engine is not ported yet."""
         return None
 
+    @staticmethod
+    @functools.lru_cache(maxsize=1)
+    def _device_link_mbps(device: torch.device) -> float:
+        """One-shot measured H2D bandwidth (MB/s) to a CUDA device: a 4 MB
+        copy from pinned memory, timed after a warm-up copy."""
+        src = torch.zeros(4 << 20, dtype=torch.uint8).pin_memory()
+        dst = torch.empty_like(src, device=device)
+        dst[: 1 << 10].copy_(src[: 1 << 10])  # warm: context, allocator
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        return (src.numel() / 1e6) / max(dt, 1e-9)
+
     def _pick_hash_backend(self, num_files: int) -> str:
-        """Stage 1 runs the exact native C++ hasher. The device hasher waits
-        on the port of the PDQ-filter kernel (ROADMAP Queue 1 item 10)."""
+        """Resolve the stage-1 backend to the base's internal value.
+
+        "gpu" ("tpu" inside) needs CUDA, or an explicit device: without one
+        it raises. "auto" takes the device only when a CUDA device is there
+        (or a non-CPU device was named), at least TPU_HASH_MIN_BATCH files
+        need hashing, and the measured link carries TPU_HASH_MIN_LINK_MBPS
+        within HASH_PROBE_TIMEOUT_S (the probe runs in a daemon thread, as
+        the base's does); otherwise the native C++ hasher."""
         if self.hash_backend == "tpu":
-            raise NotImplementedError(
-                "--hash-backend gpu needs the PDQ-filter kernel, which is not"
-                " ported yet (ROADMAP Queue 1 item 10); use native or auto"
-            )
-        if self.hash_backend == "auto" and num_files >= self.TPU_HASH_MIN_BATCH:
-            log.info("hash backend auto: the device hasher is not ported yet -> native")
-        return "native"
+            resolve_device(self.device)
+            return "tpu"
+        if self.hash_backend == "native":
+            return "native"
+        if self.device is not None:
+            has_device = torch.device(self.device).type != "cpu"
+        else:
+            has_device = torch.cuda.is_available()
+        if not has_device or num_files < self.TPU_HASH_MIN_BATCH:
+            return "native"
+        result: dict = {}
+
+        def probe() -> None:
+            try:
+                result["mbps"] = self._device_link_mbps(resolve_device(self.device))
+            except RuntimeError:
+                log.exception("hash backend auto: device probe failed")
+
+        th = threading.Thread(target=probe, daemon=True)
+        th.start()
+        th.join(self.HASH_PROBE_TIMEOUT_S)
+        if "mbps" not in result:
+            log.info("hash backend auto: no device link measured in %.0fs -> native",
+                     self.HASH_PROBE_TIMEOUT_S)
+            return "native"
+        mbps = result["mbps"]
+        backend = "tpu" if mbps >= self.TPU_HASH_MIN_LINK_MBPS else "native"
+        log.info("hash backend auto: link %.0f MB/s -> %s", mbps, backend)
+        return backend
+
+    def _add_perceptual_hashes_to_db_tpu(self, video_hashes) -> base.PerceptualHashingStats:
+        """Device-batched hashing: fetch a chunk of files (the next chunk is
+        fetched meanwhile), decode in a thread pool, hash all their frames
+        in shared device batches on ``self.device``, then commit. Per-file
+        API failures are isolated, chunk sizes adapt to the frames and
+        bytes seen so far, CTRL+C checkpoints at chunk boundaries — the
+        base's semantics, with ``GpuVideoHasher`` in place of the TPU
+        hasher."""
+        stats = base.PerceptualHashingStats()
+        hasher = GpuVideoHasher(
+            decode_workers=self.job_count, sampling=self.sampling, device=self.device
+        )
+
+        def fetch_chunk(chunk) -> list[tuple[str, bytes]]:
+            """Per-file API failure isolation (FileHasher semantics)."""
+            fetched: list[tuple[str, bytes]] = []
+            for file_hash in chunk:
+                try:
+                    response = self.client.client.get_file(hash_=file_hash)
+                    fetched.append((file_hash, response.content))
+                except base.hydrus_api.HydrusAPIException as exc:
+                    stats.failed_from_api_errors_count += 1
+                    print("[red] Hydrus API error during perceptual hashing:")
+                    print(f"{exc}")
+                    time.sleep(base.FileHasher.API_ERROR_BACKOFF_SECONDS)
+            return fetched
+
+        # adaptive chunk sizing state: cumulative means over hashed files
+        n_seen_frames = [0, 0]  # [files, frames]
+        n_seen_bytes = [0, 0]  # [files, bytes]
+        target_frames = 2 * hasher.batch_size
+
+        def next_chunk_size() -> int:
+            if n_seen_frames[0] == 0:
+                return self.TPU_HASH_CHUNK
+            mean_frames = max(1.0, n_seen_frames[1] / n_seen_frames[0])
+            size = int(target_frames / mean_frames)
+            if n_seen_bytes[0]:
+                mean_bytes = max(1.0, n_seen_bytes[1] / n_seen_bytes[0])
+                size = min(size, int(self.TPU_HASH_FETCH_RAM_CAP / mean_bytes))
+            return max(self.TPU_HASH_CHUNK, min(size, self.TPU_HASH_CHUNK_MAX))
+
+        def progress_update(pbar) -> None:
+            if self.update_progress_callback:
+                self.update_progress_callback(
+                    base.HashingProgress(complete=pbar.n, total=pbar.total)
+                )
+
+        try:
+            with tqdm(
+                total=len(video_hashes),
+                desc="Perceptually hashing files (GPU)",
+                dynamic_ncols=True,
+                unit="file",
+                colour="BLUE",
+            ) as pbar, ThreadPoolExecutor(max_workers=1) as prefetcher:
+                pos = 0
+
+                def submit_next():
+                    nonlocal pos
+                    if pos >= len(video_hashes):
+                        return None, 0
+                    chunk = video_hashes[pos : pos + next_chunk_size()]
+                    pos += len(chunk)
+                    return prefetcher.submit(fetch_chunk, chunk), len(chunk)
+
+                future, chunk_len = submit_next()
+                while future is not None:
+                    if self.should_skip_step_fn and self.should_skip_step_fn():
+                        return stats
+                    progress_update(pbar)
+                    fetched = future.result()
+                    n_seen_bytes[0] += len(fetched)
+                    n_seen_bytes[1] += sum(len(b) for _, b in fetched)
+                    future_next, next_len = submit_next()
+                    for result in hasher.hash_videos(fetched):
+                        if result.error is not None:
+                            stats.failed_from_phash_count += 1
+                            print("[red] Failed to perceptually hash a file.")
+                            print(f"Failed file SHA256 hash: {result.key}")
+                            print(f"{result.error}")
+                            if self.page_logger:
+                                self.page_logger.add_failed_video(result.key)
+                        else:
+                            self.db.add_to_phashed_files_queue(result.key, result.phash.bytes)
+                            stats.success_hash_count += 1
+                            n_seen_frames[0] += 1
+                            n_seen_frames[1] += result.n_frames
+                    self.db.commit()
+                    gc.collect()
+                    pbar.update(chunk_len)
+                    progress_update(pbar)
+                    future, chunk_len = future_next, next_len
+        except KeyboardInterrupt:
+            raise base.CancelledPerceptualHashException(stats)
+        return stats
 
     def _pick_search_backend(self, num_files: int) -> str:
         # degenerate thresholds (similarity < 1 => distance 101, "everything

@@ -7,13 +7,12 @@ The JAX package's flag surface, with the device backend spelled ``gpu``:
   --clear-search-tree, --clear-search-cache, --failed-page-name,
   --job-count (default -2), --dedup-database-dir, --verbose, --debug
   (hidden), --search-backend auto|tree|gpu, --search-prefilter,
-  --hash-backend auto|native, --decode-backend, --sampling, --rerank,
+  --hash-backend auto|native|gpu, --decode-backend, --sampling, --rerank,
   deprecated --overwrite/--no-overwrite warning.
 
-``--hash-backend gpu`` and ``--rerank clip`` wait on kernels and models not
-ported yet and stop with a message naming the ROADMAP item; ``--gui``
-belongs to the JAX package. ``main()`` is callable directly from tests and
-returns the similar-pair count.
+``--rerank clip`` waits on a model not ported yet and stops with a message
+naming the ROADMAP item; ``--gui`` belongs to the JAX package. ``main()``
+is callable directly from tests and returns the similar-pair count.
 """
 
 from __future__ import annotations
@@ -73,8 +72,9 @@ def main(
 ) -> int:
     """Run the deduplicator; returns the number of similar pairs found.
 
-    device: the search engine's torch device. None (the CLI's only choice)
-    is CUDA; tests pass "cpu" to run the plain PyTorch versions.
+    device: the torch device of the GPU hasher and the search engine. None
+    (the CLI's only choice) is CUDA; tests pass "cpu" to run the plain
+    PyTorch versions.
     """
     if decode_backend is not None:
         # flag > env > default; the decode layer reads the env var lazily
@@ -300,8 +300,9 @@ def _build_cli():
         "--hash-backend",
         default="auto",
         type=click.Choice(["auto", "native", "gpu"]),
-        help="Perceptual-hash engine: the threaded native CPU hasher (auto"
-        " resolves to it; the GPU hasher is not ported yet).",
+        help="Perceptual-hash engine: the threaded native CPU hasher, the"
+        " device-batched GPU hasher, or auto (GPU when CUDA is present, enough"
+        " files need hashing and the measured host-to-device link can feed it).",
     )
     @click.option(
         "--decode-backend",

@@ -1,2 +1,3 @@
-"""Device ops of the port: hash primitives, the segment sweep and its CUDA
-kernel, and the exact pair verification."""
+"""Device ops of the port: the PDQ filter and its CUDA kernel, hash
+primitives, the segment sweep and its CUDA kernel, and the exact pair
+verification."""

@@ -1,10 +1,10 @@
 """Builds and loads the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/exists_mask_sweep.cu`` for sm_90a into a shared
-library with a plain C interface, which ``ctypes`` loads. The library lands
-in ``csrc/build/`` under a name keyed on a hash of the source, so an edited
-source builds anew and a checkout builds on its first call. Nothing here
-runs at import time.
+Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a into a shared
+library of its own with a plain C interface, which ``ctypes`` loads. Each
+library lands in ``csrc/build/`` under a name keyed on a hash of its source
+and its compiler flags, so an edited source builds anew and a checkout
+builds on its first call. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,16 +15,33 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCE = CSRC / "exists_mask_sweep.cu"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+
+_ptr = ctypes.c_void_p
+_int = ctypes.c_int
+
+#: library name -> (extra nvcc flags, {C function: argtypes}); every
+#: function returns an int (a cudaError_t, 0 on success). The PDQ filter
+#: is bit-exact only if no multiply and add contract into an FMA.
+KERNELS: dict[str, tuple[list[str], dict[str, list]]] = {
+    "exists_mask_sweep": (
+        [],
+        {"hvd_exists_mask_sweep": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _ptr]},
+    ),
+    "pdq_filter": (
+        ["--fmad=false"],
+        {"hvd_pdq_filter": [_ptr, _ptr, _ptr, _int, _ptr]},
+    ),
+}
 
 
 def _nvcc() -> str:
@@ -38,20 +55,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build csrc/*.cu")
 
 
-def library_path() -> Path:
-    """Path of the built library, compiling it first when absent.
+def library_path(name: str) -> Path:
+    """Path of kernel library ``name``, compiling ``csrc/<name>.cu`` first
+    when absent.
 
     Raises with the compiler's output when nvcc is missing or fails. The
     compiler's report (registers, shared memory, spills from -Xptxas=-v)
-    is kept beside the library as ``<name>.log``.
+    is kept beside the library as ``<library>.log``.
     """
-    key = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libhvd_exists_mask_sweep_{key}.so"
+    extra, _ = KERNELS[name]
+    source = CSRC / f"{name}.cu"
+    flags = [*NVCC_FLAGS, *extra]
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(" ".join(flags).encode())
+    so = BUILD_DIR / f"libhvd_{name}_{digest.hexdigest()[:16]}.so"
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -63,16 +85,13 @@ def library_path() -> Path:
     return so
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, with every C signature declared."""
-    lib = ctypes.CDLL(str(library_path()))
-    ptr = ctypes.c_void_p
-    lib.hvd_exists_mask_sweep.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
-    ]
-    lib.hvd_exists_mask_sweep.restype = ctypes.c_int
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, with every C signature declared."""
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, argtypes in KERNELS[name][1].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.hvd_cuda_error_string.restype = ctypes.c_void_p
     return lib

@@ -283,7 +283,7 @@ def exists_mask_sweep(a_words, slot_a, b_words, slot_b, valid, tolerance: int):
             raise ValueError(f"{name} must be 16-byte aligned")
     from . import _build
 
-    lib = _build.load_library()
+    lib = _build.load_library("exists_mask_sweep")
     out = torch.empty(
         (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS),
         dtype=torch.int32,

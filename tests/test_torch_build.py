@@ -1,0 +1,69 @@
+"""The kernel build: one library per ``csrc/*.cu``, keyed on its source and
+flags, built by ``nvcc`` (a stand-in script here: this machine has no CUDA
+toolkit) and moved into place atomically."""
+
+from __future__ import annotations
+
+import os
+import stat
+import sys
+
+import pytest
+
+from hydrus_video_deduplicator_tpu_torch.ops import _build
+
+FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+if "FAIL" in open(args[-1]).read():
+    sys.stderr.write("error: no such intrinsic\\n")
+    sys.exit(2)
+out = args[args.index("-o") + 1]
+open(out, "w").write(" ".join(args))
+sys.stderr.write("ptxas info    : Used 40 registers, 40960 bytes smem\\n")
+"""
+
+
+@pytest.fixture()
+def fake_toolkit(tmp_path, monkeypatch):
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in _build.KERNELS:
+        (csrc / f"{name}.cu").write_bytes((_build.CSRC / f"{name}.cu").read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
+    return csrc
+
+
+def test_every_source_has_a_library_and_every_library_a_source():
+    sources = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert sources == set(_build.KERNELS) == {"exists_mask_sweep", "pdq_filter"}
+
+
+@pytest.mark.parametrize("name", sorted(_build.KERNELS))
+def test_each_source_builds_its_own_library_with_its_flags(fake_toolkit, name):
+    so = _build.library_path(name)
+    assert so.parent == fake_toolkit / "build" and so.name.startswith(f"libhvd_{name}_")
+    cmd = so.read_text().split()
+    assert "arch=compute_90a,code=sm_90a" in cmd and cmd[-1].endswith(f"{name}.cu")
+    assert ("--fmad=false" in cmd) == (name == "pdq_filter")
+    assert "registers" in so.with_suffix(".log").read_text()
+    assert not list(so.parent.glob("*.tmp"))
+    assert _build.library_path(name) == so  # built once, then found
+    # an edited source builds a new library beside the old one
+    src = fake_toolkit / f"{name}.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path(name) != so
+
+
+def test_a_failed_build_raises_with_the_compiler_output(fake_toolkit):
+    (fake_toolkit / "pdq_filter.cu").write_text("FAIL")
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        _build.library_path("pdq_filter")
+    assert not list((fake_toolkit / "build").glob("*"))

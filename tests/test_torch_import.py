@@ -16,6 +16,10 @@ MODULES = [
     "hydrus_video_deduplicator_tpu_torch._device",
     "hydrus_video_deduplicator_tpu_torch.ops",
     "hydrus_video_deduplicator_tpu_torch.ops._build",
+    "hydrus_video_deduplicator_tpu_torch.models",
+    "hydrus_video_deduplicator_tpu_torch.models.pdq",
+    "hydrus_video_deduplicator_tpu_torch.models.vpdq",
+    "hydrus_video_deduplicator_tpu_torch.ops.pdq_filter",
     "hydrus_video_deduplicator_tpu_torch.ops.similarity",
     "hydrus_video_deduplicator_tpu_torch.ops.similarity_segments",
     "hydrus_video_deduplicator_tpu_torch.ops.pair_verify",
@@ -53,6 +57,7 @@ def test_cli_help_lists_the_gpu_backend():
     assert proc.returncode == 0, proc.stderr
     assert "--search-backend [auto|tree|gpu]" in proc.stdout
     assert "--search-prefilter" in proc.stdout
+    assert "--hash-backend [auto|native|gpu]" in proc.stdout
 
 
 def test_device_helper_never_falls_back_to_the_cpu(monkeypatch):

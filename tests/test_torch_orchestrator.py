@@ -1,15 +1,17 @@
 """The port's CLI ``main()`` end to end against the fake Hydrus server:
-native hashing, stage 2, maintenance, the pruned search (through the plain
-PyTorch versions on the CPU) and pair marking, against the JAX package's
-``main()`` on the same corpus."""
+native or device hashing, stage 2, maintenance, the pruned search (through
+the plain PyTorch versions on the CPU) and pair marking, against the JAX
+package's ``main()`` on the same corpus."""
 
 from __future__ import annotations
 
+import time
 import uuid
 from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 from hydrus_video_deduplicator_tpu import entrypoint as jax_entrypoint
 from hydrus_video_deduplicator_tpu_torch import dedup as port_dedup
@@ -68,6 +70,43 @@ def test_port_cli_marks_the_jax_pair_set_and_reruns_empty(tmp_path):
     assert "/get_files/file" not in server.requests_seen
 
 
+def _stored_phashes(db_dir: Path) -> dict[str, bytes]:
+    import sqlite3
+
+    conn = sqlite3.connect(db_dir / "videohashes.sqlite")
+    try:
+        return dict(
+            conn.execute(
+                "SELECT f.file_hash, p.phash FROM files f"
+                " JOIN shape_perceptual_hash_map m ON m.hash_id = f.hash_id"
+                " JOIN shape_perceptual_hashes p ON p.phash_id = m.phash_id"
+            )
+        )
+    finally:
+        conn.close()
+
+
+def test_port_cli_gpu_hashing_marks_the_jax_pair_set(tmp_path):
+    """--hash-backend gpu (the plain filter on the CPU) stores the same
+    phash per file as the native hasher and marks the JAX main()'s 25
+    pairs."""
+    store = _subset_store()
+    _, jax_rel, _ = _run(jax_entrypoint.main, store, tmp_path / "jax", search_backend="tpu")
+    native_db, gpu_db = tmp_path / "native", tmp_path / "gpu"
+    n_pairs, n_rel, _ = _run(
+        entrypoint.main, store, native_db, search_backend="gpu", hash_backend="native",
+        device="cpu",
+    )
+    g_pairs, g_rel, _ = _run(
+        entrypoint.main, store, gpu_db, search_backend="gpu", hash_backend="gpu", device="cpu"
+    )
+    assert g_pairs == n_pairs == SUBSET_PAIRS
+    assert g_rel == n_rel == jax_rel and len(g_rel) == SUBSET_PAIRS
+    stored = _stored_phashes(gpu_db)
+    assert set(stored) == set(store)
+    assert stored == _stored_phashes(native_db)
+
+
 def test_port_cli_spelling_and_unported_paths(tmp_path):
     store = _subset_store()
     with pytest.raises(SystemExit):  # the JAX spelling is not the port's
@@ -76,7 +115,7 @@ def test_port_cli_spelling_and_unported_paths(tmp_path):
         _run(entrypoint.main, store, tmp_path / "b", rerank="clip", device="cpu")
 
 
-def test_backend_choices_map_onto_the_base_class():
+def test_backend_choices_map_onto_the_base_class(monkeypatch):
     D = port_dedup.HydrusVideoDeduplicator
 
     def ns(search="auto", hash_="auto", device=None):
@@ -93,8 +132,44 @@ def test_backend_choices_map_onto_the_base_class():
     assert D._pick_search_backend(ns("tree"), 10_000) == "tree"
     assert D._pick_search_backend(ns(device="cpu"), D.TPU_ENGINE_MIN_BATCH) == "tpu"
     assert D._pick_search_backend(ns(device="cpu"), D.TPU_ENGINE_MIN_BATCH - 1) == "tree"
-    assert D._pick_hash_backend(ns(hash_="auto"), 10_000) == "native"
-    assert D._pick_hash_backend(ns(hash_="native"), 1) == "native"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D._pick_hash_backend(ns(hash_="gpu"), 1)
+    assert D._pick_hash_backend(ns(hash_="gpu", device="cpu"), 1) == "tpu"
+    assert D._pick_hash_backend(ns(hash_="native"), 10_000) == "native"
+    assert D._pick_hash_backend(ns(hash_="auto", device="cpu"), 10_000) == "native"
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        assert D._pick_hash_backend(ns(hash_="auto"), 10_000) == "native"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            D._pick_hash_backend(ns(hash_="gpu"), 1)
     assert D._device_mesh() is None
+
+
+def test_auto_hash_backend_follows_the_link_probe(monkeypatch):
+    """"auto" takes the device only with a device, enough files, and a link
+    the probe measures fast enough within its time budget."""
+    D = port_dedup.HydrusVideoDeduplicator
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+    def ns(mbps, device="cuda:0", delay=0.0):
+        def probe(dev):
+            assert dev == torch.device("cuda", 0)
+            time.sleep(delay)
+            if mbps is None:
+                raise RuntimeError("CUDA error: no device")
+            return mbps
+
+        return SimpleNamespace(
+            hash_backend="auto",
+            device=device,
+            TPU_HASH_MIN_BATCH=D.TPU_HASH_MIN_BATCH,
+            TPU_HASH_MIN_LINK_MBPS=D.TPU_HASH_MIN_LINK_MBPS,
+            HASH_PROBE_TIMEOUT_S=0.2,
+            _device_link_mbps=probe,
+        )
+
+    fast, slow = 10 * D.TPU_HASH_MIN_LINK_MBPS, D.TPU_HASH_MIN_LINK_MBPS / 10
+    assert D._pick_hash_backend(ns(fast), D.TPU_HASH_MIN_BATCH) == "tpu"
+    assert D._pick_hash_backend(ns(fast), D.TPU_HASH_MIN_BATCH - 1) == "native"
+    assert D._pick_hash_backend(ns(slow), 10_000) == "native"
+    assert D._pick_hash_backend(ns(None), 10_000) == "native"  # the probe failed
+    assert D._pick_hash_backend(ns(fast, device="cpu"), 10_000) == "native"
+    assert D._pick_hash_backend(ns(fast, delay=1.0), 10_000) == "native"  # over budget
