@@ -5,9 +5,9 @@
 Phases (each raises on failure; nothing is caught):
 
 0. build: prints the card's name and power limit, the torch and CUDA
-   versions, and the nvcc builds of csrc/exists_mask_sweep.cu and
-   csrc/pdq_filter.cu, started together (time and the compiler's
-   register/shared-memory report of each);
+   versions, and the nvcc builds of csrc/exists_mask_sweep.cu,
+   csrc/pdq_filter.cu and csrc/similarity_segments.cu, started together
+   (time and the compiler's register/shared-memory report of each);
 1. sweep kernel against its plain PyTorch version on the card, bit for
    bit, at the main path's shapes: one row tile of 2 row blocks of scene
    leaders against the whole column corpus of leaders of the seed-7 scene
@@ -36,22 +36,44 @@ Phases (each raises on failure; nothing is caught):
    scenes x 2 versions, the second with +-6 noise; 16 s at 1 fps, so
    160,000 hashed frames; the corpus shape of artifacts/bench_e2e.py)
    served by the fake Hydrus server, deduplicate(skip_hashing=False) with
-   hash_backend="gpu", search_backend="gpu" and search_prefilter="reps"
-   (exact; "auto" would decline on this frame profile and take the
-   unpruned route, whose TPU kernel is not ported yet): no file may fail,
-   1,000 sampled queued hashes must equal hashing.compute_phash of the
-   same bytes, the marked set must equal the 5,000 planted pairs (or, if
-   the scenes match each other, a native-hash run's marked set), a re-run
-   must fetch no file and mark 0, and both the PDQ kernel and the sweep
-   kernel must have launched. It also prints one decode thread's
-   per-frame split on this host (the backend's decode, the 512x512
-   rescale, the planar transpose) over 50 of the videos.
+   hash_backend="gpu", search_backend="gpu" and the user's default
+   search_prefilter="auto", which declines the prune on 16-frame videos,
+   so stage 4 takes the unpruned segment route: no file may fail, 1,000
+   sampled queued hashes must equal hashing.compute_phash of the same
+   bytes, the marked set must equal the 5,000 planted pairs (or, if the
+   scenes match each other, a native-hash run's marked set), a re-run
+   must fetch no file and mark 0, and both the PDQ kernel and the segment
+   similarity kernel must have launched. It also prints one decode
+   thread's per-frame split on this host (the backend's decode, the
+   512x512 rescale, the planar transpose) over 50 of the videos;
+6. segment similarity kernel against its plain PyTorch version on the
+   card, bit for bit, at the main path's shapes: one tile of 2 row blocks
+   of the seed-7 library's full frames (the first and the last videos in
+   staging order, so the first and the last steps hold a dense
+   self-diagonal) against the full-frame columns of every
+   segment-eligible video, staged as phase 7's find_pairs stages them,
+   with invalid steps, an all-zero real frame at each side, padding frames
+   and empty slots; the similarities, the masks at min_sim 75 and 1, and
+   the counts (kernel 6) at tolerance 31 and 79; and kernel 2's
+   counterpart, the sweep with every step valid; each timed with CUDA
+   events beside its plain version;
+7. the unpruned search at real size through the orchestrator: the phase-2
+   library, a fresh database, stage 2, maintenance and
+   deduplicate(skip_hashing=True) with search_prefilter="none": the marked
+   set must equal the planted set, the search cache must be fully marked,
+   a re-run must mark 0, the segment similarity kernel must have launched
+   and the sweep kernel not.
 
 The last lines are the card (nvidia-smi), one JSON object describing each
-kernel, and {"ok": true, "device": {...}}. Without CUDA, or without the
-rest of the repository beside it, the script exits non-zero and prints no
-result. ``python3 chip_smoke.py N`` sets the phase-2 library size (default
-100000).
+kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
+count over the run of the path it serves: phase 2 for the sweep, phase 5
+for the PDQ filter, phase 7 for the similarity kernel and, read from the
+same counters, for the counts mode (kernel 6) and the every-step sweep
+(kernel 2): these serve no path of the program, so theirs is 0; phase 6
+holds both against their plain versions.
+Without CUDA, or without the rest of the repository beside it, the script
+exits non-zero and prints no result. ``python3 chip_smoke.py N`` sets the
+library size of phases 2 and 7 (default 100000).
 """
 
 from __future__ import annotations
@@ -68,16 +90,14 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_VIDEOS = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
 THRESHOLD = 75.0
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "exists_mask_sweep": (
-        "hydrus_video_deduplicator_tpu_torch/csrc/exists_mask_sweep.cu",
-        "hydrus_video_deduplicator_tpu/ops/similarity_segments.py:466",
-    ),
-    "pdq_filter": (
-        "hydrus_video_deduplicator_tpu_torch/csrc/pdq_filter.cu",
-        "hydrus_video_deduplicator_tpu/ops/pdq_pallas.py:113",
-    ),
+KERNELS = {  # wrapper name -> (kernel library, the TPU kernel it replaces)
+    "exists_mask_sweep": ("exists_mask_sweep", "ops/similarity_segments.py:466"),
+    "pdq_filter": ("pdq_filter", "ops/pdq_pallas.py:113"),
+    "similarity_segments": ("similarity_segments", "ops/similarity_segments.py:106"),
+    "exists_counts": ("similarity_segments", "ops/similarity_segments.py:229"),
+    "exists_mask_kernel": ("exists_mask_sweep", "ops/similarity_segments.py:354"),
 }
+LIBRARIES = sorted({lib for lib, _ in KERNELS.values()})
 #: phase 5: scenes (two versions each), seconds per video at 1 fps, side
 STAGE1_SCENES = 5_000
 STAGE1_SECONDS = 16
@@ -96,11 +116,11 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters calls after two warm-up calls."""
+def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over iters calls after warmup calls."""
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -125,8 +145,8 @@ def phase0_build():
         so = _build.library_path(name)
         return so, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
-        built = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, together
+        built = dict(zip(LIBRARIES, pool.map(build, LIBRARIES)))
     for name, (so, sec) in built.items():
         log(f"kernel build {name} (nvcc, sm_90a): {sec:.3f} s -> {os.path.relpath(so, ROOT)}")
         for line in so.with_suffix(".log").read_text().splitlines():
@@ -204,19 +224,24 @@ def phase1_kernel_vs_plain(blobs, dev):
 
 
 class StageTimers:
-    """Wall time of the engine's stages during phase 2, by wrapping them."""
+    """Wall time of the engine's stages during a phase, by wrapping them."""
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
+        self.pairs: dict[str, int] = {}  # label -> pairs handed to it, where counted
         self.events = []
+        self.work = []  # (row blocks, valid flags) of each kernel call
         self._restore = []
 
-    def wrap(self, owner, name: str, label: str):
+    def wrap(self, owner, name: str, label: str, count_pairs: bool = False):
+        """Time each call; with count_pairs, also sum len(first argument)."""
         import torch
 
         real = getattr(owner, name)
 
         def timed(*args, **kwargs):
+            if count_pairs:
+                self.pairs[label] = self.pairs.get(label, 0) + len(args[0])
             t0 = time.perf_counter()
             try:
                 return real(*args, **kwargs)
@@ -228,7 +253,10 @@ class StageTimers:
         setattr(owner, name, timed)
         self._restore.append((owner, name, real))
 
-    def wrap_kernel(self, module, name: str):
+    def wrap_kernel(self, module, name: str, valid_arg: int | None = None):
+        """Time each call of a kernel wrapper with CUDA events; with
+        valid_arg, also keep its row blocks and its valid-step flags (the
+        argument at that position) to count its work afterwards."""
         import torch
 
         real = getattr(module, name)
@@ -240,6 +268,8 @@ class StageTimers:
             out = real(*args)
             end.record()
             self.events.append((start, end))
+            if valid_arg is not None:
+                self.work.append((args[0].shape[0] // 2048, args[valid_arg]))
             return out
 
         setattr(module, name, launched)
@@ -264,10 +294,16 @@ class StageTimers:
     def kernel_ms(self) -> float:
         return sum(s.elapsed_time(e) for s, e in self.events)
 
+    def block_steps(self) -> int:
+        """(row block, valid column step) pairs the wrapped kernel ran."""
+        return sum(rb * int(valid.sum()) for rb, valid in self.work)
 
-def phase2_orchestrator(blobs, expected, n_empty, min_sim):
-    import numpy as np
 
+def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernel: str, **kwargs):
+    """Stage 4 of a fresh library through deduplicate(skip_hashing=True)
+    with the port's orchestrator (kwargs go to its constructor): the marked
+    set must be the planted set, and ``kernel`` the only segment kernel
+    launched. Returns the launch counts of every segment kernel."""
     import hydrus_video_deduplicator_tpu.db.DedupeDB as DedupeDB
     from hydrus_video_deduplicator_tpu.client import HVDClient
     from hydrus_video_deduplicator_tpu.db import vptree
@@ -275,8 +311,11 @@ def phase2_orchestrator(blobs, expected, n_empty, min_sim):
     from hydrus_video_deduplicator_tpu_torch import dedup
     from hydrus_video_deduplicator_tpu_torch.ops import pair_verify
     from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+    from hydrus_video_deduplicator_tpu_torch.parallel import engine
     from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
     from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
+
+    valid_arg = {"exists_mask_sweep": 4, "similarity_segments": 6}[kernel]
 
     search_threshold = vptree.fix_vpdq_similarity(THRESHOLD)
     assert max(1, 101 - search_threshold) == min_sim
@@ -303,7 +342,9 @@ def phase2_orchestrator(blobs, expected, n_empty, min_sim):
             db.commit()
             t_queue = time.perf_counter() - t0
 
-            deduper = dedup.HydrusVideoDeduplicator(db, client=client, search_backend="gpu")
+            deduper = dedup.HydrusVideoDeduplicator(
+                db, client=client, search_backend="gpu", **kwargs
+            )
             deduper.threshold = THRESHOLD
             t0 = time.perf_counter()
             db.begin_transaction()
@@ -321,17 +362,22 @@ def phase2_orchestrator(blobs, expected, n_empty, min_sim):
             timers = StageTimers()
             timers.wrap(reps_mod, "extract_reps", "host clustering (reps)")
             timers.wrap(GpuSearchEngine, "_stage_columns", "column staging")
-            timers.wrap(GpuSearchEngine, "_segment_route", "stage A (sweep + drain)")
+            timers.wrap(GpuSearchEngine, "_segment_route", "segment route (launches + drain)")
             timers.wrap(pair_verify, "verify_pairs", "stage B (verify)")
-            timers.wrap_kernel(seg, "exists_mask_sweep")
-            seg.LAUNCHES["exists_mask_sweep"] = 0
+            timers.wrap(
+                engine, "_with_similarities", "hit similarities (matchHashBytes)",
+                count_pairs=True,
+            )
+            timers.wrap_kernel(seg, kernel, valid_arg)
+            for name in seg.LAUNCHES:
+                seg.LAUNCHES[name] = 0
             t0 = time.perf_counter()
             try:
                 pairs = deduper.deduplicate(skip_hashing=True)
             finally:
                 timers.restore()
             t_search = time.perf_counter() - t0
-            launches = seg.LAUNCHES["exists_mask_sweep"]
+            launches = dict(seg.LAUNCHES)
 
             idx = {file_hash(i): i for i in range(N_VIDEOS)}
             got = {tuple(sorted((idx[a], idx[b]))) for a, b in server.relationships}
@@ -341,31 +387,40 @@ def phase2_orchestrator(blobs, expected, n_empty, min_sim):
                 (search_threshold,),
             ).fetchone()[0]
             log(
-                f"phase 2: N={N_VIDEOS} ({n_empty} empty hashes): marked {len(got)} pairs "
-                f"(planted {len(expected)}), missing {len(expected - got)}, extras "
+                f"phase {phase}: N={N_VIDEOS} ({n_empty} empty hashes): marked {len(got)} "
+                f"pairs (planted {len(expected)}), missing {len(expected - got)}, extras "
                 f"{len(got - expected)}, unsearched left {unsearched}, reported {pairs}; "
-                f"sweep kernel launches {launches}"
+                f"kernel launches {launches}"
             )
             if got != expected or pairs != len(expected):
-                raise AssertionError("phase 2: the marked pairs differ from the planted set")
+                raise AssertionError(f"phase {phase}: the marked pairs differ from the planted set")
             if unsearched:
-                raise AssertionError(f"phase 2: {unsearched} files left unsearched")
-            if launches == 0:
-                raise AssertionError("phase 2: the sweep kernel never launched")
+                raise AssertionError(f"phase {phase}: {unsearched} files left unsearched")
+            if launches[kernel] == 0:
+                raise AssertionError(f"phase {phase}: {kernel} never launched")
+            others = {name: n for name, n in launches.items() if name != kernel and n}
+            if others:
+                raise AssertionError(f"phase {phase}: other kernels launched: {others}")
             t0 = time.perf_counter()
             pairs2 = deduper.deduplicate(skip_hashing=True)
             t_rerun = time.perf_counter() - t0
             if pairs2 != 0:
-                raise AssertionError(f"re-run marked {pairs2} pairs")
+                raise AssertionError(f"phase {phase}: re-run marked {pairs2} pairs")
             log(
-                f"phase 2 stage times (s): queue fill {t_queue:.3f}, stage 2 {t_stage2:.3f}, "
-                f"maintenance {t_maint:.3f}, stage 4 search+mark {t_search:.3f}, "
-                f"re-run {t_rerun:.3f}"
+                f"phase {phase} stage times (s): queue fill {t_queue:.3f}, stage 2 "
+                f"{t_stage2:.3f}, maintenance {t_maint:.3f}, stage 4 search+mark "
+                f"{t_search:.3f}, re-run {t_rerun:.3f}"
             )
             for label, sec in timers.seconds.items():
-                log(f"phase 2   {label}: {sec:.3f} s")
-            log(f"phase 2   sweep kernel device time: {timers.kernel_ms():.3f} ms "
-                f"over {len(timers.events)} launches")
+                n = f", {timers.pairs[label]} pairs" if label in timers.pairs else ""
+                log(f"phase {phase}   {label}: {sec:.3f} s{n}")
+            kernel_ms = timers.kernel_ms()
+            slots = timers.block_steps() * 2048 * 2048
+            log(
+                f"phase {phase}   {kernel} device time: {kernel_ms:.3f} ms over "
+                f"{len(timers.events)} launches, {timers.block_steps()} (row block, valid "
+                f"step) pairs, {slots / (kernel_ms / 1e3):.4g} frame-pair slots/s"
+            )
             db.close()
         finally:
             server.stop()
@@ -600,7 +655,7 @@ def phase5_stage1():
         client = HVDClient(None, server.url, DEFAULT_ACCESS_KEY, None)
         deduper = dedup.HydrusVideoDeduplicator(
             db, client=client, hash_backend=hash_backend, search_backend="gpu",
-            search_prefilter="reps",
+            search_prefilter="auto",
         )
         deduper.threshold = THRESHOLD
         return server, db, deduper
@@ -630,7 +685,8 @@ def phase5_stage1():
             timers, hashers = StageTimers(), []
             timers.wrap_kernel(pdq_filter, "pdq_filter_batch")
             timers.capture(GpuVideoHasher, "hash_videos", hashers)
-            seg.LAUNCHES["exists_mask_sweep"] = 0
+            for name in seg.LAUNCHES:
+                seg.LAUNCHES[name] = 0
             pdq_filter.LAUNCHES["pdq_filter"] = 0
             t0 = time.perf_counter()
             try:
@@ -639,6 +695,7 @@ def phase5_stage1():
                 timers.restore()
             t_all = time.perf_counter() - t0
             launches = pdq_filter.LAUNCHES["pdq_filter"]
+            sims = seg.LAUNCHES["similarity_segments"]
             sweeps = seg.LAUNCHES["exists_mask_sweep"]
 
             stats = stage1["stats"]
@@ -649,7 +706,8 @@ def phase5_stage1():
             log(
                 f"phase 5: stage 1 hashed {stats.success_hash_count} videos, {failed} failed, "
                 f"{hs['frames']} frames in {hs['batches']} device batches; files in the "
-                f"database {n_files}; pdq_filter launches {launches}, sweep launches {sweeps}"
+                f"database {n_files}; pdq_filter launches {launches}, similarity_segments "
+                f"launches {sims}, sweep launches {sweeps}"
             )
             log(
                 f"phase 5 stage 1: {sec:.3f} s, {hs['frames'] / sec:.1f} hashed frames/s; "
@@ -663,8 +721,10 @@ def phase5_stage1():
                 raise AssertionError("phase 5: a file failed to hash or was not stored")
             if launches == 0:
                 raise AssertionError("phase 5: the PDQ filter kernel never launched")
-            if sweeps == 0:
-                raise AssertionError("phase 5: the sweep kernel never launched")
+            if sims == 0:
+                raise AssertionError(
+                    "phase 5: the segment similarity kernel never launched (did auto prune?)"
+                )
 
             sample = sorted(np.random.default_rng(3).choice(sorted(store), STAGE1_SAMPLE, replace=False))
             t0 = time.perf_counter()
@@ -714,6 +774,95 @@ def phase5_stage1():
     return launches
 
 
+def phase6_similarity_vs_plain(blobs, dev):
+    import numpy as np
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity as ops_sim
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+    from hydrus_video_deduplicator_tpu_torch.parallel import engine
+
+    t0 = time.perf_counter()
+    columns = engine.seg_columns(engine.CorpusIndex(blobs))
+    cols = engine.GpuSearchEngine(device=dev)._stage_columns(columns)
+    # the first and the last videos in staging order: the first and the
+    # last column steps hold a dense self-diagonal
+    ends = [columns.indices[:300], columns.indices[-300:]]
+    first, last = (
+        seg.pack_blocks([(int(i), blobs[i]) for i in e], seg.ROW_FRAMES, seg.ROW_SLOTS) for e in ends
+    )
+    packed, slot_a, counts_a, _ = seg.stack_blocks(
+        [first[0], last[-1]], 2, seg.ROW_FRAMES, seg.ROW_SLOTS
+    )
+    a_words = ops_sim.to_words(packed, dev)
+    a_words[5] = 0  # a real row frame with every bit clear
+    slot_a = torch.from_numpy(slot_a).to(dev)
+    counts_a = torch.from_numpy(counts_a.reshape(-1)).to(dev)
+    b_words = cols["words"].clone()
+    b_words[7] = 0  # a real column frame with every bit clear
+    slot_b, counts_b, n_steps = cols["slots"], cols["counts"], cols["n_steps"]
+    valid = torch.ones(n_steps, dtype=torch.int32, device=dev)
+    valid[3::7] = 0
+    valid[-2:] = 1
+    n_pad = int((slot_b < 0).sum())
+    n_empty = int((counts_a == 0).sum()) + int((counts_b == 0).sum())
+    log(
+        f"phase 6 inputs: {n_steps} column steps ({b_words.shape[0]} frames, {n_pad} padding), "
+        f"2 row blocks, {int((valid == 0).sum())} invalid steps, {n_empty} empty slots; "
+        f"{time.perf_counter() - t0:.1f} s to build"
+    )
+    staged = int((torch.from_numpy(cols["smaps"]) >= 0).sum())
+    assert staged == len(columns.indices) and n_steps >= 2
+    assert n_pad > 0 and n_empty > 0 and int(slot_a[5]) >= 0
+    sims_args = (a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid)
+    sweep_args = (a_words, slot_a, b_words, slot_b)
+    cases = {  # label -> (kernel call, plain call)
+        "sims": (
+            lambda: seg.similarity_segments(*sims_args),
+            lambda: seg.similarity_segments_plain(*sims_args),
+        ),
+        "mask 75": (
+            lambda: seg.similarity_segments(*sims_args, 75),
+            lambda: seg.similarity_mask_plain(*sims_args, 75),
+        ),
+        "mask 1": (
+            lambda: seg.similarity_segments(*sims_args, 1),
+            lambda: seg.similarity_mask_plain(*sims_args, 1),
+        ),
+        "counts 31": (
+            lambda: seg.exists_counts(a_words, slot_a, b_words, slot_b, valid, 31),
+            lambda: seg.exists_counts_plain(a_words, slot_a, b_words, slot_b, valid, 31),
+        ),
+        "counts 79": (
+            lambda: seg.exists_counts(a_words, slot_a, b_words, slot_b, valid, 79),
+            lambda: seg.exists_counts_plain(a_words, slot_a, b_words, slot_b, valid, 79),
+        ),
+        "every-step sweep 79": (
+            lambda: seg.exists_mask_kernel(*sweep_args, 79),
+            lambda: seg.exists_mask_kernel_plain(*sweep_args, 79),
+        ),
+    }
+    result = {}
+    for label, (kernel, plain) in cases.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        n_nonzero = int((want != 0).sum())
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 6 {label}: kernel != plain: max abs error {err}")
+        if n_nonzero == 0:
+            raise AssertionError(f"phase 6 {label}: the plain version found nothing")
+        del got, want
+        ms = cuda_time_ms(kernel, 10)
+        plain_ms = cuda_time_ms(plain, 1, warmup=0)  # the check above warmed it
+        log(
+            f"phase 6 {label}: bit-equal ({n_nonzero} nonzero outputs); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms per call"
+        )
+        result[label] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -726,14 +875,30 @@ def main() -> int:
     phase0_build()
     blobs, expected, n_empty, min_sim = build_library()
     timing = phase1_kernel_vs_plain(blobs, dev)
-    sweep_launches = phase2_orchestrator(blobs, expected, n_empty, min_sim)
-    del blobs
+    sweep_launches = stage4_orchestrator(
+        2, blobs, expected, n_empty, min_sim, "exists_mask_sweep"
+    )["exists_mask_sweep"]
     phase3_cli()
     pdq_timing = phase4_pdq_kernel_vs_plain(dev)
     pdq_launches = phase5_stage1()
+    seg_timing = phase6_similarity_vs_plain(blobs, dev)
+    seg_launches = stage4_orchestrator(
+        7, blobs, expected, n_empty, min_sim, "similarity_segments", search_prefilter="none"
+    )
+    del blobs
     if "jax" in sys.modules:
         raise AssertionError("the port's main path imported jax")
 
+    def entry(launches, *labels):
+        return (
+            launches,
+            max(seg_timing[k]["max_abs_err"] for k in labels),
+            seg_timing[labels[0]]["ms"],
+            seg_timing[labels[0]]["plain_ms"],
+        )
+
+    # (launches on its path, max abs error, kernel ms, plain ms); ms at the
+    # path's mode: tolerance 79 for the sweep, the mask for kernel 3
     measured = {
         "exists_mask_sweep": (
             sweep_launches,
@@ -744,6 +909,11 @@ def main() -> int:
         "pdq_filter": (
             pdq_launches, pdq_timing["max_abs_err"], pdq_timing["ms"], pdq_timing["plain_ms"]
         ),
+        "similarity_segments": entry(
+            seg_launches["similarity_segments"], "mask 75", "mask 1", "sims"
+        ),
+        "exists_counts": entry(seg_launches["exists_counts"], "counts 31", "counts 79"),
+        "exists_mask_kernel": entry(seg_launches["exists_mask_kernel"], "every-step sweep 79"),
     }
     print(card_line())
     print(json.dumps({
@@ -751,8 +921,8 @@ def main() -> int:
             {
                 "name": name,
                 "route": "cuda",
-                "source": KERNELS[name][0],
-                "replaces": KERNELS[name][1],
+                "source": f"hydrus_video_deduplicator_tpu_torch/csrc/{KERNELS[name][0]}.cu",
+                "replaces": f"hydrus_video_deduplicator_tpu/{KERNELS[name][1]}",
                 "launches": launches,
                 "max_abs_err": err,
                 "ms": ms,

@@ -41,6 +41,10 @@ KERNELS: dict[str, tuple[list[str], dict[str, list]]] = {
         ["--fmad=false"],
         {"hvd_pdq_filter": [_ptr, _ptr, _ptr, _int, _ptr]},
     ),
+    "similarity_segments": (
+        [],
+        {"hvd_similarity_segments": [_ptr] * 8 + [_int] * 5 + [_ptr]},
+    ),
 }
 
 

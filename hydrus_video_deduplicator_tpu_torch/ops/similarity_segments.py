@@ -1,24 +1,34 @@
-"""Fixed-shape segment layout and the existence mask sweep (counterpart of
-the JAX package's ``ops/similarity_segments.py``).
+"""Fixed-shape segment layout and its kernels (counterpart of the JAX
+package's ``ops/similarity_segments.py``).
 
 Videos of up to SEG_MAX_FRAMES frames pack greedily into fixed frame
 blocks; raggedness lives in DATA (per-frame slot ids, -1 = padding), not
 in shapes. The row side packs into ROW_FRAMES-frame blocks of ROW_SLOTS
 videos, the column side into CHUNK_FRAMES-frame chunks of CHUNK_SLOTS
-videos, N_SPLIT chunks per column step.
+videos, N_SPLIT chunks per column step. Every kernel takes one row tile
+against the whole stacked column corpus, bit-packed, with a validity flag
+per column step.
 
-The existence mask sweep is stage A of the pruned search: for one row tile
-against the whole stacked column corpus it emits, per (row slot, column
-slot), whether any frame pair lies within a Hamming tolerance, as
+The existence mask sweep is stage A of the pruned search: per (row slot,
+column slot), whether any frame pair lies within a Hamming tolerance, as
 row-packed 32-bit words:
 
     out[i*8 + w, j*256 + s*64 + c], bit b  <=>  row slot 32w+b of row
     block i and column slot c of chunk s of step j have a frame pair at
     distance <= tol; steps with valid[j] == 0 are all zeros.
 
-``exists_mask_sweep`` launches the hand-written CUDA kernel
-(``csrc/exists_mask_sweep.cu``) on CUDA tensors and runs
-``exists_mask_sweep_plain`` on CPU tensors.
+The segment similarity kernel serves the unpruned search: per slot pair
+the integer similarity min(100*ma // max(fa,1), 100*mb // max(fb,1)) at
+tolerance TOL, where ma (mb) counts the row (column) slot's frames that
+match some frame of the other slot and fa (fb) are the slots' frame
+counts; or only whether it reaches min_sim, in the sweep's mask layout;
+or ma alone at any tolerance.
+
+Wrappers and their kernels: ``exists_mask_sweep`` and
+``exists_mask_kernel`` (every step valid) launch
+``csrc/exists_mask_sweep.cu``; ``similarity_segments`` and
+``exists_counts`` launch ``csrc/similarity_segments.cu``. Each runs its
+``*_plain`` version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import numpy as np
 import torch
 
 from . import similarity as ops_sim
-from .similarity import BITS, LANES, unpack_pm1, unpack_pm1_host
+from .similarity import BITS, LANES, TOL, unpack_pm1, unpack_pm1_host
 
 #: kernel row block: frames x video slots
 ROW_FRAMES = 2048
@@ -50,7 +60,12 @@ MASK_WORDS = ROW_SLOTS // 32
 
 #: kernel launches by wrapper name: each wrapper adds one where it launches
 #: its kernel (a run reads them to show its path went through the kernel)
-LAUNCHES = {"exists_mask_sweep": 0}
+LAUNCHES = {
+    "exists_mask_sweep": 0,
+    "exists_mask_kernel": 0,
+    "similarity_segments": 0,
+    "exists_counts": 0,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -179,28 +194,32 @@ def unpack_blocks_pm1(
 
 
 # ---------------------------------------------------------------------------
-# Existence mask sweep: plain PyTorch version and the CUDA kernel's wrapper
+# Plain PyTorch versions: the one-hot slot reductions of the JAX XLA twins
 # ---------------------------------------------------------------------------
 
 
-def _check_sweep_args(a_words, slot_a, b_words, slot_b, valid, tolerance):
+def _check_sweep_args(
+    a_words, slot_a, b_words, slot_b, valid, tolerance, counts_a=None, counts_b=None
+):
     if not 0 <= tolerance < BITS // 2:
         # at tol >= 128 a zero (padding) ±1 row would reach the match
-        # threshold in the plain version; the kernel excludes padding by
+        # threshold in the plain version; the kernels exclude padding by
         # slot id, so the two would disagree
         raise ValueError(f"tolerance must be in [0, 128), got {tolerance}")
     dev = a_words.device
-    for name, t, dtype in (
-        ("a_words", a_words, torch.int32),
-        ("slot_a", slot_a, torch.int32),
-        ("b_words", b_words, torch.int32),
-        ("slot_b", slot_b, torch.int32),
-        ("valid", valid, torch.int32),
-    ):
+    named = [
+        ("a_words", a_words), ("slot_a", slot_a), ("b_words", b_words),
+        ("slot_b", slot_b), ("valid", valid),
+    ]
+    if counts_a is not None or counts_b is not None:
+        named += [("counts_a", counts_a), ("counts_b", counts_b)]
+    for name, t in named:
+        if t is None:
+            raise ValueError(f"{name} is missing")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, a_words on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be {torch.int32}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     ra_f, cb_f = a_words.shape[0], b_words.shape[0]
@@ -210,29 +229,30 @@ def _check_sweep_args(a_words, slot_a, b_words, slot_b, valid, tolerance):
         raise ValueError(f"b_words must be [k*{STEP_FRAMES}, {LANES}], got {tuple(b_words.shape)}")
     if slot_a.shape != (ra_f,) or slot_b.shape != (cb_f,):
         raise ValueError("slot ids must hold one id per frame")
-    if valid.shape != (cb_f // STEP_FRAMES,):
-        raise ValueError(f"valid must hold one flag per column step ({cb_f // STEP_FRAMES})")
-    return ra_f // ROW_FRAMES, cb_f // STEP_FRAMES
+    n_row_blocks, n_steps = ra_f // ROW_FRAMES, cb_f // STEP_FRAMES
+    if valid.shape != (n_steps,):
+        raise ValueError(f"valid must hold one flag per column step ({n_steps})")
+    if counts_a is not None and (
+        counts_a.shape != (n_row_blocks * ROW_SLOTS,) or counts_b.shape != (n_steps * STEP_SLOTS,)
+    ):
+        raise ValueError("counts_a and counts_b must hold one frame count per slot")
+    return n_row_blocks, n_steps
 
 
-def exists_mask_sweep_plain(a_words, slot_a, b_words, slot_b, valid, tolerance: int):
-    """Plain PyTorch version of the sweep: the same one-hot slot reductions
-    as the JAX package's ``make_exists_mask_kernel_xla``, with ±1 products
-    in float32 (exact: every partial sum is an integer of magnitude <= 256),
-    laid out as the sweep's output. Arguments as ``exists_mask_sweep``."""
-    n_row_blocks, n_steps = _check_sweep_args(
-        a_words, slot_a, b_words, slot_b, valid, tolerance
-    )
+def _plain_slot_counts(a_words, slot_a, b_words, slot_b, valid, tolerance, both_ways):
+    """(i, j, ma, mb) for each row block i and valid column step j, with ma
+    and mb [N_SPLIT, ROW_SLOTS, CHUNK_SLOTS] int32 (mb is None unless
+    both_ways): the one-hot reductions of the JAX package's
+    ``similarity_segments_xla`` and ``make_exists_kernel_xla``, with ±1
+    products in float32 (exact: every partial sum is an integer of
+    magnitude <= 2048). Slot ids outside a block's slot range match no
+    slot, like padding."""
     match_dot = BITS - 2 * tolerance
     dev = a_words.device
-    out = torch.zeros(
-        (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS), dtype=torch.int32, device=dev
-    )
     row_slots = torch.arange(ROW_SLOTS, dtype=torch.int32, device=dev)
     col_slots = torch.arange(CHUNK_SLOTS, dtype=torch.int32, device=dev)
-    pow2 = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(32, device=dev)
     steps = torch.nonzero(valid).flatten().tolist()
-    for i in range(n_row_blocks):
+    for i in range(a_words.shape[0] // ROW_FRAMES):
         rs = slice(i * ROW_FRAMES, (i + 1) * ROW_FRAMES)
         a = unpack_blocks_pm1(a_words[rs], slot_a[rs], torch.float32)  # [RF, 256]
         onehot_a = (slot_a[rs, None] == row_slots).to(torch.float32)  # [RF, RS]
@@ -243,17 +263,174 @@ def exists_mask_sweep_plain(a_words, slot_a, b_words, slot_b, valid, tolerance: 
             onehot_b = (slot_b[cs].view(N_SPLIT, CHUNK_FRAMES, 1) == col_slots).to(
                 torch.float32
             )  # [S, CF, CS]
-            dot = torch.matmul(a, b.transpose(1, 2))  # [S, RF, CF]
-            m = (dot >= match_dot).to(torch.float32)
+            m = (torch.matmul(a, b.transpose(1, 2)) >= match_dot).to(torch.float32)  # [S, RF, CF]
             hits_b = (torch.matmul(m, onehot_b) > 0).to(torch.float32)  # [S, RF, CS]
             ma = torch.matmul(onehot_a.T, hits_b)  # [S, RS, CS]
-            hit = (ma >= 1).to(torch.int64).view(N_SPLIT, MASK_WORDS, 32, CHUNK_SLOTS)
-            words = (hit * pow2[:, None]).sum(2)  # [S, W, CS] in [0, 2^32)
-            words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-            out[i * MASK_WORDS : (i + 1) * MASK_WORDS, j * STEP_SLOTS : (j + 1) * STEP_SLOTS] = (
-                words.to(torch.int32).permute(1, 0, 2).reshape(MASK_WORDS, STEP_SLOTS)
-            )
+            mb = None
+            if both_ways:
+                hits_a = (torch.matmul(onehot_a.T, m) > 0).to(torch.float32)  # [S, RS, CF]
+                mb = torch.matmul(hits_a, onehot_b).to(torch.int32)  # [S, RS, CS]
+            yield i, j, ma.to(torch.int32), mb
+
+
+def _plain_similarity(ma, mb, counts_a, counts_b, i, j):
+    """[S, RS, CS] int32 slot similarities min(100*ma // max(fa, 1),
+    100*mb // max(fb, 1)) of row block i against column step j."""
+    fa = torch.clamp(counts_a[i * ROW_SLOTS : (i + 1) * ROW_SLOTS], min=1)
+    fb = torch.clamp(counts_b[j * STEP_SLOTS : (j + 1) * STEP_SLOTS], min=1)
+    return torch.minimum(
+        (100 * ma) // fa.view(1, ROW_SLOTS, 1),
+        (100 * mb) // fb.view(N_SPLIT, 1, CHUNK_SLOTS),
+    )
+
+
+def _pack_rows(hit: torch.Tensor) -> torch.Tensor:
+    """[S, RS, CS] bool -> [MASK_WORDS, STEP_SLOTS] int32 row-packed words:
+    bit b of word [w, s*CS + c] is hit[s, 32w+b, c]."""
+    pow2 = torch.ones(32, dtype=torch.int64, device=hit.device) << torch.arange(
+        32, device=hit.device
+    )
+    bits = hit.to(torch.int64).view(N_SPLIT, MASK_WORDS, 32, CHUNK_SLOTS)
+    words = (bits * pow2[:, None]).sum(2)  # [S, W, CS] in [0, 2^32)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).permute(1, 0, 2).reshape(MASK_WORDS, STEP_SLOTS)
+
+
+def _slot_tile(x: torch.Tensor) -> torch.Tensor:
+    """[S, RS, CS] -> the [RS, STEP_SLOTS] output tile of one step."""
+    return x.permute(1, 0, 2).reshape(ROW_SLOTS, STEP_SLOTS)
+
+
+def exists_mask_sweep_plain(a_words, slot_a, b_words, slot_b, valid, tolerance: int):
+    """Plain PyTorch version of the sweep, laid out as the sweep's output
+    (the JAX package's ``make_exists_mask_kernel_xla`` per step).
+    Arguments as ``exists_mask_sweep``."""
+    n_row_blocks, n_steps = _check_sweep_args(a_words, slot_a, b_words, slot_b, valid, tolerance)
+    out = torch.zeros(
+        (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device
+    )
+    for i, j, ma, _ in _plain_slot_counts(
+        a_words, slot_a, b_words, slot_b, valid, tolerance, both_ways=False
+    ):
+        out[i * MASK_WORDS : (i + 1) * MASK_WORDS, j * STEP_SLOTS : (j + 1) * STEP_SLOTS] = (
+            _pack_rows(ma >= 1)
+        )
     return out
+
+
+def exists_mask_kernel_plain(a_words, slot_a, b_words, slot_b, tolerance: int):
+    """Plain version of ``exists_mask_kernel``: the sweep, every step valid."""
+    valid = torch.ones(b_words.shape[0] // STEP_FRAMES, dtype=torch.int32, device=a_words.device)
+    return exists_mask_sweep_plain(a_words, slot_a, b_words, slot_b, valid, tolerance)
+
+
+def similarity_segments_plain(a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid):
+    """Plain version of kernel 3 (the JAX package's
+    ``similarity_segments_xla``) at tolerance TOL: [n_row_blocks *
+    ROW_SLOTS, n_steps * STEP_SLOTS] int32 slot similarities, zeros for
+    invalid steps. Arguments as ``similarity_segments``."""
+    n_row_blocks, n_steps = _check_sweep_args(
+        a_words, slot_a, b_words, slot_b, valid, TOL, counts_a, counts_b
+    )
+    out = torch.zeros(
+        (n_row_blocks * ROW_SLOTS, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device
+    )
+    for i, j, ma, mb in _plain_slot_counts(
+        a_words, slot_a, b_words, slot_b, valid, TOL, both_ways=True
+    ):
+        out[i * ROW_SLOTS : (i + 1) * ROW_SLOTS, j * STEP_SLOTS : (j + 1) * STEP_SLOTS] = (
+            _slot_tile(_plain_similarity(ma, mb, counts_a, counts_b, i, j))
+        )
+    return out
+
+
+def similarity_mask_plain(
+    a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, min_sim: int
+):
+    """Plain version of kernel 3's mask mode: sim >= min_sim, row-packed in
+    the sweep's layout ([n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS]
+    int32), which is what the JAX route's scan body makes of the kernel's
+    output. min_sim >= 1, so empty slots never set a bit."""
+    if min_sim < 1:
+        raise ValueError(f"min_sim must be >= 1, got {min_sim}")
+    n_row_blocks, n_steps = _check_sweep_args(
+        a_words, slot_a, b_words, slot_b, valid, TOL, counts_a, counts_b
+    )
+    out = torch.zeros(
+        (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device
+    )
+    for i, j, ma, mb in _plain_slot_counts(
+        a_words, slot_a, b_words, slot_b, valid, TOL, both_ways=True
+    ):
+        sim = _plain_similarity(ma, mb, counts_a, counts_b, i, j)
+        out[i * MASK_WORDS : (i + 1) * MASK_WORDS, j * STEP_SLOTS : (j + 1) * STEP_SLOTS] = (
+            _pack_rows(sim >= min_sim)
+        )
+    return out
+
+
+def exists_counts_plain(a_words, slot_a, b_words, slot_b, valid, tolerance: int):
+    """Plain version of kernel 6 (the JAX package's
+    ``make_exists_kernel_xla``): ma, the row frames of each row slot within
+    ``tolerance`` of some frame of each column slot, [n_row_blocks *
+    ROW_SLOTS, n_steps * STEP_SLOTS] int32, zeros for invalid steps."""
+    n_row_blocks, n_steps = _check_sweep_args(a_words, slot_a, b_words, slot_b, valid, tolerance)
+    out = torch.zeros(
+        (n_row_blocks * ROW_SLOTS, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device
+    )
+    for i, j, ma, _ in _plain_slot_counts(
+        a_words, slot_a, b_words, slot_b, valid, tolerance, both_ways=False
+    ):
+        out[i * ROW_SLOTS : (i + 1) * ROW_SLOTS, j * STEP_SLOTS : (j + 1) * STEP_SLOTS] = (
+            _slot_tile(ma)
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' wrappers
+# ---------------------------------------------------------------------------
+
+#: output modes of csrc/similarity_segments.cu
+_SIMS, _MASK, _COUNTS = 0, 1, 2
+
+
+def _launch(name: str, library: str, fn: str, out: torch.Tensor, *args):
+    """Call C function ``fn`` of kernel library ``library`` with ``args``
+    and the current stream of ``out``'s device; raise on a CUDA error,
+    else count one launch of ``name``."""
+    from . import _build
+
+    lib = _build.load_library(library)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        msg = ctypes.string_at(lib.hvd_cuda_error_string(err)).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_cuda(a_words, b_words):
+    if a_words.device.type != "cuda":
+        raise ValueError(f"unsupported device {a_words.device}")
+    for name, t in (("a_words", a_words), ("b_words", b_words)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _sweep(name, a_words, slot_a, b_words, slot_b, valid, tolerance):
+    n_row_blocks, n_steps = _check_sweep_args(a_words, slot_a, b_words, slot_b, valid, tolerance)
+    _check_cuda(a_words, b_words)
+    out = torch.empty(
+        (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device
+    )
+    return _launch(
+        name, "exists_mask_sweep", "hvd_exists_mask_sweep", out,
+        a_words.data_ptr(), slot_a.data_ptr(), b_words.data_ptr(), slot_b.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), n_row_blocks, n_steps, tolerance,
+    )
 
 
 def exists_mask_sweep(a_words, slot_a, b_words, slot_b, valid, tolerance: int):
@@ -273,31 +450,78 @@ def exists_mask_sweep(a_words, slot_a, b_words, slot_b, valid, tolerance: int):
     """
     if a_words.device.type == "cpu":
         return exists_mask_sweep_plain(a_words, slot_a, b_words, slot_b, valid, tolerance)
-    if a_words.device.type != "cuda":
-        raise ValueError(f"unsupported device {a_words.device}")
-    n_row_blocks, n_steps = _check_sweep_args(
-        a_words, slot_a, b_words, slot_b, valid, tolerance
-    )
-    for name, t in (("a_words", a_words), ("b_words", b_words)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    from . import _build
+    return _sweep("exists_mask_sweep", a_words, slot_a, b_words, slot_b, valid, tolerance)
 
-    lib = _build.load_library("exists_mask_sweep")
-    out = torch.empty(
-        (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS),
-        dtype=torch.int32,
-        device=a_words.device,
+
+def exists_mask_kernel(a_words, slot_a, b_words, slot_b, tolerance: int):
+    """Counterpart of the JAX package's ``make_exists_mask_kernel_pallas``
+    (TPU kernel 2): the existence masks of every column step, i.e. the
+    sweep with every step valid, launched on ``csrc/exists_mask_sweep.cu``.
+    CUDA tensors launch the kernel (or raise), CPU tensors take
+    ``exists_mask_kernel_plain``; ``LAUNCHES["exists_mask_kernel"]``."""
+    if a_words.device.type == "cpu":
+        return exists_mask_kernel_plain(a_words, slot_a, b_words, slot_b, tolerance)
+    valid = torch.ones(b_words.shape[0] // STEP_FRAMES, dtype=torch.int32, device=a_words.device)
+    return _sweep("exists_mask_kernel", a_words, slot_a, b_words, slot_b, valid, tolerance)
+
+
+def _segments(
+    name, mode, a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, tol, min_sim
+):
+    n_row_blocks, n_steps = _check_sweep_args(
+        a_words, slot_a, b_words, slot_b, valid, tol, counts_a, counts_b
     )
-    with torch.cuda.device(a_words.device):
-        stream = torch.cuda.current_stream(a_words.device).cuda_stream
-        err = lib.hvd_exists_mask_sweep(
-            a_words.data_ptr(), slot_a.data_ptr(), b_words.data_ptr(),
-            slot_b.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            n_row_blocks, n_steps, tolerance, stream,
-        )
-    if err != 0:
-        msg = ctypes.string_at(lib.hvd_cuda_error_string(err)).decode()
-        raise RuntimeError(f"exists_mask_sweep launch failed: CUDA error {err} ({msg})")
-    LAUNCHES["exists_mask_sweep"] += 1
-    return out
+    _check_cuda(a_words, b_words)
+    rows = n_row_blocks * (MASK_WORDS if mode == _MASK else ROW_SLOTS)
+    out = torch.empty((rows, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device)
+    return _launch(
+        name, "similarity_segments", "hvd_similarity_segments", out,
+        a_words.data_ptr(), slot_a.data_ptr(),
+        None if counts_a is None else counts_a.data_ptr(),
+        b_words.data_ptr(), slot_b.data_ptr(),
+        None if counts_b is None else counts_b.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), n_row_blocks, n_steps, tol, mode, min_sim,
+    )
+
+
+def similarity_segments(
+    a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, min_sim: int | None = None
+):
+    """Kernel 3: slot-level similarity of one row tile against the whole
+    column corpus at tolerance TOL.
+
+    Frames, slot ids and valid as ``exists_mask_sweep``; counts_a
+    [RA_F // ROW_FRAMES * 256] and counts_b [CB_F // STEP_FRAMES * 256]
+    int32 are the per-slot frame counts. With ``min_sim`` None, returns the
+    similarities [RA_S, CB_S] int32 (``similarity_segments_plain``); with
+    an int >= 1, the row-packed masks of sim >= min_sim in the sweep's
+    layout (``similarity_mask_plain``), which is what the unpruned route
+    drains: the dense similarities never reach device memory.
+
+    CUDA tensors launch ``csrc/similarity_segments.cu`` (or raise); CPU
+    tensors take the plain version. ``LAUNCHES["similarity_segments"]``
+    counts the kernel launches.
+    """
+    args = (a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid)
+    if min_sim is not None and min_sim < 1:
+        raise ValueError(f"min_sim must be >= 1, got {min_sim}")
+    if a_words.device.type == "cpu":
+        if min_sim is None:
+            return similarity_segments_plain(*args)
+        return similarity_mask_plain(*args, min_sim)
+    mode = _SIMS if min_sim is None else _MASK
+    return _segments("similarity_segments", mode, *args, TOL, 0 if min_sim is None else min_sim)
+
+
+def exists_counts(a_words, slot_a, b_words, slot_b, valid, tolerance: int):
+    """Kernel 6: per (row slot, column slot), the row frames within
+    ``tolerance`` of some frame of the column slot, [RA_S, CB_S] int32;
+    the counts mode of ``csrc/similarity_segments.cu``. CUDA tensors launch
+    the kernel (or raise), CPU tensors take ``exists_counts_plain``;
+    ``LAUNCHES["exists_counts"]``."""
+    if a_words.device.type == "cpu":
+        return exists_counts_plain(a_words, slot_a, b_words, slot_b, valid, tolerance)
+    return _segments(
+        "exists_counts", _COUNTS, a_words, slot_a, None, b_words, slot_b, None, valid,
+        tolerance, 0,
+    )

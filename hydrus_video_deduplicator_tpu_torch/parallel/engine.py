@@ -15,11 +15,18 @@ package's ``parallel/engine.py``).
 4. stage B: ``ops.pair_verify.verify_pairs`` computes each candidate's
    exact similarity.
 
-Videos longer than SEG_MAX_FRAMES take the complement sweeps through
-``find_pairs``: the bucketed route (videos padded to a power of two, ±1
-products through ``torch.matmul``) and, above MAX_BUCKET frames, exact
-native comparison on the host. The unpruned segment route and its kernel
-are not ported yet, so ``find_pairs`` always takes the bucketed route.
+``GpuSearchEngine.find_pairs`` is the unpruned search (stage 4 under
+``--search-prefilter none``, or when ``auto`` declines the prune). Pairs of
+videos of up to SEG_MAX_FRAMES frames take the segment route: the full
+column frames are staged on the device once per sweep, each row tile is
+one launch of the segment similarity kernel (``ops.similarity_segments``,
+a hand-written CUDA kernel; its plain version on the CPU) in its mask
+mode, the masks drain as stage A's do, and each hit's integer similarity
+is native ``matchHashBytes`` on the host. Pairs with a video of
+SEG_MAX_FRAMES+1..MAX_BUCKET frames take the bucketed route (videos padded
+to a power of two, ±1 products through ``torch.matmul``), and longer
+videos exact native comparison on the host; the pruned search reaches
+those two through ``find_pairs`` for its long-video complements.
 """
 
 from __future__ import annotations
@@ -155,6 +162,18 @@ def seg_columns_from_pairs(pairs: "list[tuple[int, bytes]]") -> SegColumns:
     return SegColumns(idx, cnt, by)
 
 
+def seg_columns(cols: CorpusIndex) -> SegColumns:
+    """The segment-eligible columns of a corpus index, bucket by bucket in
+    ascending pad order (as the JAX route stages them); indices ascend
+    within a bucket, so ``col_limit``'s step gating still skips the steps
+    past the triangle."""
+    idx = np.concatenate(
+        [np.zeros(0, np.int64)]
+        + [cols.buckets[p].video_idx for p in sorted(cols.buckets) if p <= seg.SEG_MAX_FRAMES]
+    )
+    return SegColumns(idx, cols.n_frames[idx], cols.src)
+
+
 def state_from_jax(col_state: dict) -> dict:
     """A port ``col_state`` from a JAX engine's one.
 
@@ -201,6 +220,19 @@ def _tile_similarity(rows_words, rows_counts, cols_words, cols_counts, pa: int, 
     return torch.where(nonempty, sim, torch.zeros_like(sim))
 
 
+def _with_similarities(hits, row_phashes, all_phashes) -> list[tuple[int, int, int]]:
+    """(row, col, integer similarity) for hit (row, col) pairs: native
+    matchHashBytes, the kernel's own value by construction. DB-backed
+    columns (``iter_many``) fetch the hit columns' blobs in batched IN()
+    probes, not one SELECT per hit."""
+    if not hits:
+        return []
+    col_blobs = all_phashes
+    if hasattr(all_phashes, "iter_many"):
+        col_blobs = dict(all_phashes.iter_many(sorted({j for _, j in hits})))
+    return [(i, j, int(matchHashBytes(row_phashes[i], col_blobs[j], TOL))) for i, j in hits]
+
+
 def decode_mask_hits(word_rows: np.ndarray, cols: np.ndarray, words: np.ndarray):
     """Set bits of row-packed mask words -> (row slot, column slot) arrays.
 
@@ -234,7 +266,7 @@ class GpuSearchEngine:
         self._progress_done = 0
         self._progress_total = 0
 
-    # -- the bucketed route (complement sweeps) ----------------------------
+    # -- the unpruned search: segment and bucketed routes ------------------
 
     def find_pairs(
         self,
@@ -255,9 +287,9 @@ class GpuSearchEngine:
         only hits whose corpus index is < col_limit; column tiles past it
         are skipped.
 
-        The JAX package takes its fixed-shape segment route here on a TPU;
-        the port has not ported that route and its kernel yet, so every
-        bucket pair takes the bucketed route (identical results).
+        Pairs of videos of at most SEG_MAX_FRAMES frames take the segment
+        route (the column side is staged under ``col_state["seg_cols"]``
+        once per sweep), every other bucket pair the bucketed route.
         """
         assert min_int_similarity >= 1, "minimum similarity must be >= 1"
         state = col_state if col_state is not None else {}
@@ -276,11 +308,37 @@ class GpuSearchEngine:
         self._progress_total = total_pairs
         self._progress_cb = progress
         out: list[tuple[int, int, int]] = []
+        seg_rows = [
+            (int(i), row_phashes[int(i)])
+            for p, b in sorted(rows.buckets.items())
+            if p <= seg.SEG_MAX_FRAMES
+            for i in b.video_idx
+        ]
+        if seg_rows and any(p <= seg.SEG_MAX_FRAMES for p in cols.buckets):
+            cols_dev = state.get("seg_cols")
+            if cols_dev is None:
+                cols_dev = state["seg_cols"] = self._stage_columns(seg_columns(cols))
+
+            def launch(a_words, slot_a, counts_a, valid):
+                return seg.similarity_segments(
+                    a_words, slot_a, counts_a, cols_dev["words"], cols_dev["slots"],
+                    cols_dev["counts"], valid, min_int_similarity,
+                )
+
+            hits = self._segment_route(seg_rows, cols_dev, col_limit, launch)
+            out.extend(_with_similarities(hits, row_phashes, all_phashes))
         col_arrays = state.setdefault("col_arrays", {})
         col_tiles = state.setdefault("col_tiles", {})
         for pa in rows.buckets:
+            pbs = [
+                pb
+                for pb in cols.buckets
+                if not (pa <= seg.SEG_MAX_FRAMES and pb <= seg.SEG_MAX_FRAMES)
+            ]
+            if not pbs:
+                continue  # every column bucket is covered by the segment route
             r_idx, r_frames, r_counts = rows.bucket_arrays(pa)
-            for pb in cols.buckets:
+            for pb in pbs:
                 if pb not in col_arrays:
                     col_arrays[pb] = cols.bucket_arrays(pb)
                 out.extend(
@@ -469,9 +527,14 @@ class GpuSearchEngine:
                 cols_dev = prune_state["seg_cols"] = self._stage_columns(
                     seg_columns_from_pairs(rep_cols)
                 )
-            candidates = self._segment_route(
-                seg_rows, cols_dev, col_limit, reps_mod.prune_tolerance(radius_cap)
-            )
+            tolerance = reps_mod.prune_tolerance(radius_cap)
+
+            def launch(a_words, slot_a, _counts_a, valid):
+                return seg.exists_mask_sweep(
+                    a_words, slot_a, cols_dev["words"], cols_dev["slots"], valid, tolerance
+                )
+
+            candidates = self._segment_route(seg_rows, cols_dev, col_limit, launch)
 
         # DB-backed columns: fetch every candidate's column blob in batched
         # IN() probes; candidates inside this chunk's own row span reuse the
@@ -531,9 +594,11 @@ class GpuSearchEngine:
         """Pack the column corpus into CHUNK_FRAMES chunks (N_SPLIT per
         step) and copy it to the device, bit-packed, COL_FILL_STEPS steps
         at a time so host memory stays bounded. Returns the device words
-        [n_steps*STEP_FRAMES, 8] int32 and slot ids [n_steps*STEP_FRAMES]
-        int32 (-1 padding), and the host map from flat column slot to
-        corpus index ``smaps`` [n_steps*STEP_SLOTS] int64 (-1 empty)."""
+        [n_steps*STEP_FRAMES, 8] int32, slot ids [n_steps*STEP_FRAMES]
+        int32 (-1 padding) and per-slot frame counts ``counts``
+        [n_steps*STEP_SLOTS] int32 (0 empty), and the host map from flat
+        column slot to corpus index ``smaps`` [n_steps*STEP_SLOTS] int64
+        (-1 empty)."""
         counts = seg_cols.counts
         chunk_id, slot_id, _frame_off, n_chunks = seg.plan_chunks(
             counts, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS
@@ -544,6 +609,8 @@ class GpuSearchEngine:
         slots = torch.full((n_frames,), -1, dtype=torch.int32, device=self.device)
         smaps = np.full(n_steps * seg.STEP_SLOTS, -1, dtype=np.int64)
         smaps[chunk_id * seg.CHUNK_SLOTS + slot_id] = seg_cols.indices
+        slot_counts = np.zeros(n_steps * seg.STEP_SLOTS, dtype=np.int32)
+        slot_counts[chunk_id * seg.CHUNK_SLOTS + slot_id] = counts
 
         grp = self.COL_FILL_STEPS * seg.STEP_FRAMES
         buf_w = np.zeros((grp, LANES), dtype=np.uint32)
@@ -573,7 +640,13 @@ class GpuSearchEngine:
             )
             buf_s[f0 - g0 : f0 - g0 + n] = np.repeat(slot_id[ks], counts[ks])
         flush()
-        return {"words": words, "slots": slots, "smaps": smaps, "n_steps": n_steps}
+        return {
+            "words": words,
+            "slots": slots,
+            "counts": torch.from_numpy(slot_counts).to(self.device),
+            "smaps": smaps,
+            "n_steps": n_steps,
+        }
 
     def _row_blocks_per_tile(self, n_row_blocks: int, n_steps: int) -> int:
         """Row blocks per sweep launch, from the memory its masks take."""
@@ -585,13 +658,15 @@ class GpuSearchEngine:
             budget = self.CPU_MASK_BUDGET_BYTES
         return max(1, min(n_row_blocks, 65535, budget // mask_bytes))
 
-    def _segment_route(self, seg_rows, cols_dev, col_limit, tolerance):
-        """Stage A over staged columns: candidate (row, col) corpus pairs.
+    def _segment_route(self, seg_rows, cols_dev, col_limit, launch):
+        """Hit (row, col) corpus pairs of seg_rows against staged columns.
 
-        Each row tile is one sweep launch against the whole column corpus;
-        per-step validity skips steps holding no column below col_limit.
-        The next tile is launched before the previous one drains, so the
-        device works while the host decodes.
+        Each row tile is one ``launch(a_words, slot_a, counts_a, valid)``
+        of a mask kernel against the whole column corpus (the sweep for
+        stage A, the similarity kernel for the unpruned search); per-step
+        validity skips steps holding no column below col_limit. The next
+        tile is launched before the previous one drains, so the device
+        works while the host decodes.
         """
         smaps = cols_dev["smaps"]
         n_steps = cols_dev["n_steps"]
@@ -607,16 +682,14 @@ class GpuSearchEngine:
         pending = None
         for i0 in range(0, len(row_blocks), per_tile):
             group = row_blocks[i0 : i0 + per_tile]
-            packed, slot_ids, _cnt, rmap = seg.stack_blocks(
+            packed, slot_ids, cnt, rmap = seg.stack_blocks(
                 group, len(group), seg.ROW_FRAMES, seg.ROW_SLOTS
             )
-            masks = seg.exists_mask_sweep(
+            masks = launch(
                 ops_sim.to_words(packed, self.device),
                 torch.from_numpy(slot_ids).to(self.device),
-                cols_dev["words"],
-                cols_dev["slots"],
+                torch.from_numpy(cnt.reshape(-1)).to(self.device),
                 valid,
-                tolerance,
             )
             if pending is not None:
                 self._drain(*pending, smaps, col_limit, total_cols, out)

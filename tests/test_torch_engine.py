@@ -1,8 +1,9 @@
 """GpuSearchEngine (on the CPU, through the plain PyTorch versions) against
 the JAX package's TpuSearchEngine on the CPU.
 
-Pair sets must be identical: the port's pruned route == the JAX pruned
-route == the JAX unpruned route, including videos past the segment limit
+Pair sets must be identical: the port's pruned route, its unpruned
+segment and bucketed routes == the JAX pruned route == the JAX unpruned
+segment route, including videos past the segment limit
 (512 frames) and past the bucketed limit (1024 frames), the chunked
 triangle (col_limit with col_state reuse and rows_at), and rep-cache
 radius-cap invalidation.
@@ -57,9 +58,103 @@ def test_pruned_equals_jax(corpus, min_sim):
 
 
 def test_find_pairs_equals_jax(corpus):
-    """The port's find_pairs (bucketed route + host path for the longest)."""
+    """The port's find_pairs (segment route, bucketed route for 513-1024
+    frames, host path for the longest)."""
     blobs, brute, _ = corpus
     assert sorted(_port().find_pairs(blobs, blobs, 40)) == [h for h in brute if h[2] >= 40]
+
+
+@pytest.mark.parametrize("min_sim", [1, 75])
+def test_find_pairs_segment_route_equals_jax(corpus, min_sim, monkeypatch):
+    """The unpruned segment route on the CPU (the kernel's plain version)
+    gives the JAX segment route's pair list with its integer
+    similarities; 513-1024-frame videos keep the bucketed route, longer
+    ones the host path, and empty hashes match nothing."""
+    blobs, brute, _ = corpus
+    launches = []
+    real = seg.similarity_segments
+
+    def spy(*args):
+        launches.append(args[0].shape[0] // seg.ROW_FRAMES)
+        return real(*args)
+
+    monkeypatch.setattr(seg, "similarity_segments", spy)
+    got = sorted(_port().find_pairs(blobs, blobs, min_sim))
+    assert got == [h for h in brute if h[2] >= min_sim]
+    assert launches
+
+
+def test_find_pairs_segment_route_in_triangle_chunks(corpus):
+    """Stage 4's pattern on the unpruned route: row chunks sharing one
+    col_state, each sweeping the corpus prefix up to its own end, against
+    the JAX engine called the same way."""
+    blobs, brute, _ = corpus
+    n = len(blobs)
+    cuts = [0, n // 3, 2 * n // 3, n]
+    port = _port()
+    jax_engine = TpuSearchEngine(force_segments=True)
+    state: dict = {}
+    jax_state: dict = {}
+    got, want = [], []
+    for r0, r1 in zip(cuts, cuts[1:]):
+        rows = blobs[r0:r1]
+        got += [
+            (i + r0, j, s)
+            for i, j, s in port.find_pairs(rows, blobs, 20, col_state=state, col_limit=r1)
+        ]
+        if r0 == 0:
+            staged = state["seg_cols"]
+        want += [
+            (i + r0, j, s)
+            for i, j, s in jax_engine.find_pairs(rows, blobs, 20, col_state=jax_state, col_limit=r1)
+        ]
+    assert state["seg_cols"] is staged  # the full column frames staged once
+    assert sorted(got) == sorted(want)
+    ends = np.searchsorted(cuts, np.arange(n), side="right")
+    assert sorted(got) == [h for h in brute if h[2] >= 20 and h[1] < cuts[ends[h[0]]]]
+
+
+def test_find_pairs_routes_by_bucket(corpus, monkeypatch):
+    """Every bucket pair with both sides of at most 512 frames takes the
+    segment route, whatever the call's size; the bucketed route sees only
+    pairs with a 513-1024-frame side; a call whose columns hold no
+    segment-eligible video stages and launches nothing."""
+    blobs, brute, _ = corpus
+    launches, bucket_pairs = [], []
+    real_seg, real_bucket = seg.similarity_segments, GpuSearchEngine._bucket_pair
+
+    def spy_seg(*args):
+        launches.append(1)
+        return real_seg(*args)
+
+    def spy_bucket(self, pa, r_idx, r_frames, r_counts, pb, *rest):
+        bucket_pairs.append((pa, pb))
+        return real_bucket(self, pa, r_idx, r_frames, r_counts, pb, *rest)
+
+    monkeypatch.setattr(seg, "similarity_segments", spy_seg)
+    monkeypatch.setattr(GpuSearchEngine, "_bucket_pair", spy_bucket)
+    lens = [len(b) // 32 for b in blobs]
+    short = [k for k, n in enumerate(lens) if 1 <= n <= 512]
+    pos = {k: p for p, k in enumerate(short[:2])}
+    two = [blobs[k] for k in pos]  # one tiny call: 2 x 2 videos
+    assert sorted(_port().find_pairs(two, two, 1)) == [
+        (pos[i], pos[j], s) for i, j, s in brute if i in pos and j in pos
+    ]
+    assert launches and not bucket_pairs
+
+    launches.clear()
+    state: dict = {}
+    assert sorted(_port().find_pairs(blobs, blobs, 1, col_state=state)) == brute
+    assert launches and bucket_pairs
+    assert all(max(pa, pb) > 512 for pa, pb in bucket_pairs)
+    assert {max(pa, pb) for pa, pb in bucket_pairs} == {1024}
+
+    launches.clear()
+    long_cols = [b if 512 < n <= 1024 else b"" for b, n in zip(blobs, lens)]
+    state = {}
+    got = _port().find_pairs(blobs, long_cols, 1, col_state=state)
+    assert not launches and "seg_cols" not in state
+    assert sorted(got) == [h for h in brute if 512 < lens[h[1]] <= 1024]
 
 
 def test_pruned_col_limit_state_reuse_and_rows_at(corpus):
@@ -287,3 +382,22 @@ def test_engine_on_cuda_equals_jax(corpus, cuda_device):
     ]
     want = [h for h in brute if h[2] >= 20 and (h[0] >= half or h[1] < half)]
     assert sorted(got) == want
+
+
+@pytest.mark.cuda
+def test_segment_route_on_cuda_equals_jax(corpus, cuda_device):
+    """On the card: the similarity kernel's mask mode, the drain and the
+    host similarities give the JAX pair list, triangle chunks included."""
+    blobs, brute, _ = corpus
+    engine = GpuSearchEngine(device=cuda_device)
+    before = seg.LAUNCHES["similarity_segments"]
+    assert sorted(engine.find_pairs(blobs, blobs, 1)) == brute
+    assert seg.LAUNCHES["similarity_segments"] > before
+    n, half = len(blobs), len(blobs) // 2
+    state: dict = {}
+    got = engine.find_pairs(blobs[:half], blobs, 20, col_state=state, col_limit=half)
+    got += [
+        (i + half, j, s)
+        for i, j, s in engine.find_pairs(blobs[half:], blobs, 20, col_state=state, col_limit=n)
+    ]
+    assert sorted(got) == [h for h in brute if h[2] >= 20 and (h[0] >= half or h[1] < half)]

@@ -1,23 +1,29 @@
 """The port's CLI ``main()`` end to end against the fake Hydrus server:
 native or device hashing, stage 2, maintenance, the pruned search (through
 the plain PyTorch versions on the CPU) and pair marking, against the JAX
-package's ``main()`` on the same corpus."""
+package's ``main()`` on the same corpus; and ``main()`` over queued hashes
+on the unpruned segment route against the pruned route and the VP-tree."""
 
 from __future__ import annotations
 
+import functools
 import time
 import uuid
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
 from hydrus_video_deduplicator_tpu import entrypoint as jax_entrypoint
+from hydrus_video_deduplicator_tpu.db import DedupeDB
 from hydrus_video_deduplicator_tpu_torch import dedup as port_dedup
 from hydrus_video_deduplicator_tpu_torch import entrypoint
+from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
 
 from .fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus, corpus_file_store
+from .unit_tests.test_pruned_search import _mixed_corpus, _reencode, _scene_video
 
 #: scene_b (6 encodings) + scene_d (5) + two files that match nothing:
 #: C(6,2) + C(5,2) = 25 pairs, at a fraction of the full corpus's hashing
@@ -173,3 +179,62 @@ def test_auto_hash_backend_follows_the_link_probe(monkeypatch):
     assert D._pick_hash_backend(ns(None), 10_000) == "native"  # the probe failed
     assert D._pick_hash_backend(ns(fast, device="cpu"), 10_000) == "native"
     assert D._pick_hash_backend(ns(fast, delay=1.0), 10_000) == "native"  # over budget
+
+
+def _dedupe_queued(db_dir: Path, blobs: list[bytes], **kwargs) -> tuple[int, set]:
+    """The port's ``main(skip_hashing=True)`` (stage 2, maintenance, stage
+    4) over hashes queued straight into a fresh database, as if stage 1 had
+    run: (reported count, marked corpus index pairs). A re-run must mark
+    nothing."""
+    def file_hash(i: int) -> str:
+        return f"{i:064x}"
+
+    DedupeDB.set_db_dir(db_dir)
+    DedupeDB.create_db()
+    db = DedupeDB.DedupeDb(DedupeDB.get_db_dir(), DedupeDB.get_db_name())
+    db.init_connection()
+    db.conn.executemany(
+        "INSERT OR REPLACE INTO phashed_file_queue (file_hash, phash) VALUES (?, ?)",
+        [(file_hash(i), b) for i, b in enumerate(blobs)],
+    )
+    db.commit()
+    db.close()
+    server = FakeHydrus({})
+    server.start()
+    try:
+        run = functools.partial(
+            entrypoint.main, api_key=DEFAULT_ACCESS_KEY, api_url=server.url,
+            dedup_database_dir=db_dir, skip_hashing=True, device="cpu", **kwargs,
+        )
+        pairs = run()
+        assert run() == 0
+    finally:
+        server.stop()
+    idx = {file_hash(i): i for i in range(len(blobs))}
+    return pairs, {tuple(sorted((idx[a], idx[b]))) for a, b in server.relationships}
+
+
+def test_unpruned_segment_route_marks_the_pruned_and_tree_pairs(tmp_path, monkeypatch):
+    """main() with search_prefilter="none" (the CLI's --search-prefilter
+    none), whose find_pairs takes the segment route (the kernel's plain
+    version on the CPU), marks the pairs that the pruned route and the
+    VP-tree mark, long videos and an empty hash included."""
+    rng = np.random.default_rng(77)
+    blobs = _mixed_corpus(rng, long_video=True)
+    for k in (0, 4, 8, 12):  # more planted re-encodes among short videos
+        v = np.frombuffer(blobs[k], np.uint8).reshape(-1, 32)
+        blobs.append(_reencode(rng, v).tobytes())
+    blobs.append(_scene_video(rng, 2, 4).tobytes())
+    reps = _dedupe_queued(tmp_path / "reps", blobs, search_backend="gpu", search_prefilter="reps")
+    tree = _dedupe_queued(tmp_path / "tree", blobs, search_backend="tree")
+    launches = []
+    real = seg.similarity_segments
+
+    def spy(*args):
+        launches.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(seg, "similarity_segments", spy)
+    none = _dedupe_queued(tmp_path / "none", blobs, search_backend="gpu", search_prefilter="none")
+    assert none == reps == tree
+    assert none[0] >= 6 and launches
