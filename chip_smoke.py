@@ -6,20 +6,22 @@ Phases (each raises on failure; nothing is caught):
 
 0. build: prints the card's name and power limit, the torch and CUDA
    versions, and the nvcc builds of csrc/exists_mask_sweep.cu,
-   csrc/pdq_filter.cu and csrc/similarity_segments.cu, started together
-   (time and the compiler's register/shared-memory report of each);
+   csrc/pdq_filter.cu, csrc/similarity_segments.cu and
+   csrc/similarity_block.cu, started together (time and the compiler's
+   register/shared-memory report of each);
 1. sweep kernel against its plain PyTorch version on the card, bit for
    bit, at the main path's shapes: one row tile of 2 row blocks of scene
    leaders against the whole column corpus of leaders of the seed-7 scene
    library, tolerances 79 and 31, all-zero padding frames, an all-zero real
    frame and some invalid steps; both timed with CUDA events;
 2. stage 4 at real size through the orchestrator: the seed-7 mean-71 scene
-   library of N videos (artifacts/sweep_scenes.build_corpus, as
-   artifacts/library_1m_fresh.py builds it) queued into a fresh database,
-   stage 2, maintenance and deduplicate(skip_hashing=True) with the port's
-   HydrusVideoDeduplicator against a fake Hydrus server: the marked set
-   must equal the planted set, the search cache must be fully marked, a
-   re-run must mark 0, and the sweep kernel must have launched;
+   library of N videos (the port's scene_library.build_corpus, the model
+   of artifacts/sweep_scenes.py, frames clipped at 512) queued into a
+   fresh database, stage 2, maintenance and deduplicate(skip_hashing=True)
+   with the port's HydrusVideoDeduplicator against a fake Hydrus server:
+   the marked set must equal the planted set, the search cache must be
+   fully marked, a re-run must mark 0, and the sweep kernel must have
+   launched, and no other kernel;
 3. the CLI, ``python -m hydrus_video_deduplicator_tpu_torch`` (run in this
    process, so its kernel launches are counted), on the test corpus: with
    --hash-backend native --search-backend gpu --search-prefilter reps,
@@ -62,7 +64,29 @@ Phases (each raises on failure; nothing is caught):
    deduplicate(skip_hashing=True) with search_prefilter="none": the marked
    set must equal the planted set, the search cache must be fully marked,
    a re-run must mark 0, the segment similarity kernel must have launched
-   and the sweep kernel not.
+   and no other kernel;
+8. bucketed similarity kernel (kernel 5) against its plain PyTorch version
+   on the card, bit for bit, at the long-video route's shapes: the
+   513-1024-frame videos of the phase-9 library's first checkpoint chunk
+   (one launch's row tile) against the whole of buckets 1, 64, 512 and
+   1024 (one launch's columns), and the swapped direction, that chunk's 33-64-frame videos
+   against bucket 1024; with empty videos, counts of 1, pad - 1 and pad
+   (frames past a video's real count then hold zero words: real all-zero
+   frames beside the all-zero padding), an all-zero real frame on each side
+   and self-pairs scoring 100; each timed with CUDA events beside its plain
+   version;
+9. the long tail through the orchestrator: the seed-7 library with its
+   frames clipped at 1024 instead of 512 (the same draws: the seed-7
+   frame-count profile with its upper tail kept) and long plants, pairs
+   with a 513-1024-frame side (re-encodes, adjacent and far, and
+   half-clips whose halves fall at or below 512): N videos with the
+   user's default search_prefilter="auto", which keeps the prune, so the
+   long videos take the complements, then N_NONE = 20,000 videos with
+   search_prefilter="none". Each run as phase 2: the marked set must equal
+   the planted set, the search cache must be fully marked, a re-run must
+   mark 0; the bucketed similarity kernel must have launched beside the
+   sweep ("auto") or the segment similarity kernel ("none"), and no
+   torch.matmul may run inside the bucketed route.
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
@@ -70,10 +94,19 @@ count over the run of the path it serves: phase 2 for the sweep, phase 5
 for the PDQ filter, phase 7 for the similarity kernel and, read from the
 same counters, for the counts mode (kernel 6) and the every-step sweep
 (kernel 2): these serve no path of the program, so theirs is 0; phase 6
-holds both against their plain versions.
+holds both against their plain versions; phase 9's "auto" run for the
+bucketed similarity kernel. "bound_ms" is the least time the card could
+take for the timed call: the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations over the
+peak for their type (a frame pair of the popcount kernels as a 256-wide
+int8 dot, 512 operations, against 1,979 TOP/s; the PDQ filter's float32
+adds and multiplies against 67 TFLOP/s). No single PyTorch call computes
+any of these functions, so "library_ms" is null. At the end the script
+fails if jax or any module of the JAX package was imported.
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero and prints no result. ``python3 chip_smoke.py N`` sets the
-library size of phases 2 and 7 (default 100000).
+library size of phases 2, 7, 8 and the "auto" run of phase 9 (default
+100000).
 """
 
 from __future__ import annotations
@@ -96,6 +129,7 @@ KERNELS = {  # wrapper name -> (kernel library, the TPU kernel it replaces)
     "similarity_segments": ("similarity_segments", "ops/similarity_segments.py:106"),
     "exists_counts": ("similarity_segments", "ops/similarity_segments.py:229"),
     "exists_mask_kernel": ("exists_mask_sweep", "ops/similarity_segments.py:354"),
+    "similarity_block": ("similarity_block", "ops/similarity_pallas.py:112"),
 }
 LIBRARIES = sorted({lib for lib, _ in KERNELS.values()})
 #: phase 5: scenes (two versions each), seconds per video at 1 fps, side
@@ -103,6 +137,17 @@ STAGE1_SCENES = 5_000
 STAGE1_SECONDS = 16
 STAGE1_DIM = 128
 STAGE1_SAMPLE = 1_000
+#: phase 9: the frame clip of the long-tail library, the size of its
+#: "none" run, and the long plants (adjacent, far, half-clip) of each run
+LONG_CLIP = 1024
+N_NONE = 20_000
+LONG_PLANTS = {"auto": (60, 30, 30), "none": (40, 15, 10)}
+#: the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+FP32_OPS_PER_S = 67e12
+#: a frame pair of the popcount kernels counted as a 256-wide int8 dot
+OPS_PER_FRAME_PAIR = 512
 
 
 def log(msg: str) -> None:
@@ -155,25 +200,56 @@ def phase0_build():
         _build.load_library(name)
 
 
-def build_library():
-    """The seed-7 scene library: (blobs, expected undirected pairs)."""
-    import numpy as np
+def build_library(n: int, clip: int = 512, long_plants=(0, 0, 0)):
+    """The seed-7 scene library of n videos, frames clipped at ``clip``:
+    (blobs, expected undirected pairs, empty hashes, min_sim)."""
+    from hydrus_video_deduplicator_tpu_torch import scene_library as sl
 
-    sys.path.insert(0, os.path.join(ROOT, "artifacts"))
-    # sweep_scenes reads its corpus parameters from argv at import time
-    argv, sys.argv = sys.argv, ["sweep_scenes", str(N_VIDEOS), "131072", "pruned"]
-    import sweep_scenes as ss
+    t0 = time.perf_counter()
+    blobs, expected, n_empty = sl.build_corpus(n, seed=7, clip=clip, long_plants=long_plants)
+    pairs = {(a, b) for (a, b) in expected if a < b}
+    lens = [len(b) // 32 for b in blobs]
+    n_long = sum(1 for k in lens if k > sl.SEG_MAX_FRAMES)
+    long_pairs = sum(1 for a, b in pairs if max(lens[a], lens[b]) > sl.SEG_MAX_FRAMES)
+    log(
+        f"library: N={n}, clip {clip}: {sum(lens)} frames (mean {sum(lens) / n:.1f}, max "
+        f"{max(lens)}), {n_long} videos of more than {sl.SEG_MAX_FRAMES} frames, {len(pairs)} "
+        f"planted pairs >= {sl.MIN_SIM}, {long_pairs} of them with a long side; "
+        f"{time.perf_counter() - t0:.1f} s to build"
+    )
+    return blobs, pairs, n_empty, sl.MIN_SIM
 
-    sys.argv = argv
-    blobs, expected, n_empty = ss.build_corpus(np.random.default_rng(7))
-    return blobs, {(a, b) for (a, b) in expected if a < b}, n_empty, ss.MIN_SIM
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, ops: int, ops_per_s: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the operations over their peak."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / ops_per_s
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def popcount_bound(frame_pairs: int, *tensors) -> tuple[float, str]:
+    """bound() of a popcount kernel's call: its inputs and output read or
+    written once, each real frame pair a 256-wide int8 dot."""
+    return bound(tensor_bytes(*tensors), OPS_PER_FRAME_PAIR * frame_pairs, INT8_OPS_PER_S)
+
+
+def segment_frame_pairs(slot_a, slot_b, valid) -> int:
+    """Real frame pairs of one sweep-shaped call: every non-padding row
+    frame against every non-padding frame of the valid column steps."""
+    live_b = (slot_b.view(valid.shape[0], -1) >= 0) & (valid[:, None] != 0)
+    return int((slot_a >= 0).sum()) * int(live_b.sum())
 
 
 def phase1_kernel_vs_plain(blobs, dev):
     import numpy as np
     import torch
 
-    from hydrus_video_deduplicator_tpu.ops import reps as reps_mod
+    from hydrus_video_deduplicator_tpu_torch.ops import reps as reps_mod
     from hydrus_video_deduplicator_tpu_torch.ops import similarity as ops_sim
     from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
     from hydrus_video_deduplicator_tpu_torch.parallel.engine import (
@@ -215,11 +291,17 @@ def phase1_kernel_vs_plain(blobs, dev):
             raise AssertionError(f"kernel != plain at tol {tol}: max abs word error {err}")
         ms = cuda_time_ms(lambda: seg.exists_mask_sweep(*args, tol), 20)
         plain_ms = cuda_time_ms(lambda: seg.exists_mask_sweep_plain(*args, tol), 3)
+        pairs = segment_frame_pairs(slot_a, cols["slots"], valid)
+        bound_ms, bound_by = popcount_bound(pairs, *args, got)
         log(
             f"phase 1 tol {tol}: bit-equal ({n_bits} bits set); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms per call"
+            f"plain {plain_ms:.4f} ms per call; {pairs} real frame pairs, bound "
+            f"{bound_ms:.4f} ms ({bound_by})"
         )
-        result[tol] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+        result[tol] = {
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
     return result
 
 
@@ -229,8 +311,8 @@ class StageTimers:
     def __init__(self):
         self.seconds: dict[str, float] = {}
         self.pairs: dict[str, int] = {}  # label -> pairs handed to it, where counted
-        self.events = []
-        self.work = []  # (row blocks, valid flags) of each kernel call
+        self.events: dict[str, list] = {}  # kernel wrapper -> CUDA events per call
+        self.work: dict[str, list] = {}  # kernel wrapper -> work per call
         self._restore = []
 
     def wrap(self, owner, name: str, label: str, count_pairs: bool = False):
@@ -253,10 +335,9 @@ class StageTimers:
         setattr(owner, name, timed)
         self._restore.append((owner, name, real))
 
-    def wrap_kernel(self, module, name: str, valid_arg: int | None = None):
-        """Time each call of a kernel wrapper with CUDA events; with
-        valid_arg, also keep its row blocks and its valid-step flags (the
-        argument at that position) to count its work afterwards."""
+    def wrap_kernel(self, module, name: str, work=None):
+        """Time each call of a kernel wrapper with CUDA events; with work,
+        also keep work(*args) (an int or a device scalar, read afterwards)."""
         import torch
 
         real = getattr(module, name)
@@ -267,13 +348,35 @@ class StageTimers:
             start.record()
             out = real(*args)
             end.record()
-            self.events.append((start, end))
-            if valid_arg is not None:
-                self.work.append((args[0].shape[0] // 2048, args[valid_arg]))
+            self.events.setdefault(name, []).append((start, end))
+            if work is not None:
+                self.work.setdefault(name, []).append(work(*args))
             return out
 
         setattr(module, name, launched)
         self._restore.append((module, name, real))
+
+    def count_inside(self, owner, name: str, inner, inner_name: str) -> list:
+        """Count the calls of inner.inner_name made while owner.name runs;
+        returns a one-element list holding the count."""
+        real, real_inner = getattr(owner, name), getattr(inner, inner_name)
+        depth, calls = [0], [0]
+
+        def outer(*args, **kwargs):
+            depth[0] += 1
+            try:
+                return real(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+
+        def counted(*args, **kwargs):
+            calls[0] += depth[0] > 0
+            return real_inner(*args, **kwargs)
+
+        setattr(owner, name, outer)
+        setattr(inner, inner_name, counted)
+        self._restore += [(owner, name, real), (inner, inner_name, real_inner)]
+        return calls
 
     def capture(self, owner, name: str, sink: list):
         """Wrap a method so each instance it runs on is appended to sink."""
@@ -291,31 +394,47 @@ class StageTimers:
         for owner, name, real in reversed(self._restore):
             setattr(owner, name, real)
 
-    def kernel_ms(self) -> float:
-        return sum(s.elapsed_time(e) for s, e in self.events)
+    def kernel_ms(self, name: str) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events.get(name, []))
 
-    def block_steps(self) -> int:
-        """(row block, valid column step) pairs the wrapped kernel ran."""
-        return sum(rb * int(valid.sum()) for rb, valid in self.work)
+    def launches(self, name: str) -> int:
+        return len(self.events.get(name, []))
+
+    def work_done(self, name: str) -> int:
+        return sum(int(w) for w in self.work.get(name, []))
 
 
-def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernel: str, **kwargs):
+def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernels: set, **kwargs):
     """Stage 4 of a fresh library through deduplicate(skip_hashing=True)
     with the port's orchestrator (kwargs go to its constructor): the marked
-    set must be the planted set, and ``kernel`` the only segment kernel
-    launched. Returns the launch counts of every segment kernel."""
-    import hydrus_video_deduplicator_tpu.db.DedupeDB as DedupeDB
-    from hydrus_video_deduplicator_tpu.client import HVDClient
-    from hydrus_video_deduplicator_tpu.db import vptree
-    from hydrus_video_deduplicator_tpu.ops import reps as reps_mod
+    set must be the planted set, every kernel of ``kernels`` must have
+    launched and no other search kernel, and no torch.matmul may run inside
+    the bucketed route. Returns the launch counts of every search kernel."""
+    import torch
+
     from hydrus_video_deduplicator_tpu_torch import dedup
+    from hydrus_video_deduplicator_tpu_torch.client import HVDClient
+    from hydrus_video_deduplicator_tpu_torch.db import DedupeDB, vptree
     from hydrus_video_deduplicator_tpu_torch.ops import pair_verify
+    from hydrus_video_deduplicator_tpu_torch.ops import reps as reps_mod
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
     from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
     from hydrus_video_deduplicator_tpu_torch.parallel import engine
     from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
     from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
 
-    valid_arg = {"exists_mask_sweep": 4, "similarity_segments": 6}[kernel]
+    n_videos = len(blobs)
+    counters = (seg.LAUNCHES, sb.LAUNCHES)
+    #: each kernel's wrapper, its module and its work per call: (row block,
+    #: valid step) slot pairs of 2048 x 2048 frames for the segment kernels,
+    #: real frame pairs for the bucketed one
+    work = {
+        "exists_mask_sweep": (seg, lambda *a: a[0].shape[0] // 2048 * a[4].sum() * 2048 * 2048),
+        "similarity_segments": (seg, lambda *a: a[0].shape[0] // 2048 * a[6].sum() * 2048 * 2048),
+        "similarity_block": (
+            sb, lambda *a: a[1].to(torch.int64).sum() * a[3].to(torch.int64).sum()
+        ),
+    }
 
     search_threshold = vptree.fix_vpdq_similarity(THRESHOLD)
     assert max(1, 101 - search_threshold) == min_sim
@@ -334,10 +453,10 @@ def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernel: s
             db.init_connection()
             client = HVDClient(None, server.url, DEFAULT_ACCESS_KEY, None)
             t0 = time.perf_counter()
-            for i0 in range(0, N_VIDEOS, 50_000):
+            for i0 in range(0, n_videos, 50_000):
                 db.conn.executemany(
                     "INSERT OR REPLACE INTO phashed_file_queue (file_hash, phash) VALUES (?, ?)",
-                    [(file_hash(i), blobs[i]) for i in range(i0, min(i0 + 50_000, N_VIDEOS))],
+                    [(file_hash(i), blobs[i]) for i in range(i0, min(i0 + 50_000, n_videos))],
                 )
             db.commit()
             t_queue = time.perf_counter() - t0
@@ -357,29 +476,33 @@ def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernel: s
                 deduper.run_maintenance()
             t_maint = time.perf_counter() - t0
             n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
-            assert n_files == N_VIDEOS, n_files
+            assert n_files == n_videos, n_files
 
             timers = StageTimers()
             timers.wrap(reps_mod, "extract_reps", "host clustering (reps)")
             timers.wrap(GpuSearchEngine, "_stage_columns", "column staging")
             timers.wrap(GpuSearchEngine, "_segment_route", "segment route (launches + drain)")
+            timers.wrap(GpuSearchEngine, "_bucket_pair", "bucketed route (staging, launches, hits)")
             timers.wrap(pair_verify, "verify_pairs", "stage B (verify)")
             timers.wrap(
                 engine, "_with_similarities", "hit similarities (matchHashBytes)",
                 count_pairs=True,
             )
-            timers.wrap_kernel(seg, kernel, valid_arg)
-            for name in seg.LAUNCHES:
-                seg.LAUNCHES[name] = 0
+            for name in kernels:
+                timers.wrap_kernel(work[name][0], name, work[name][1])
+            matmuls = timers.count_inside(GpuSearchEngine, "_bucket_pair", torch, "matmul")
+            for counter in counters:
+                for name in counter:
+                    counter[name] = 0
             t0 = time.perf_counter()
             try:
                 pairs = deduper.deduplicate(skip_hashing=True)
             finally:
                 timers.restore()
             t_search = time.perf_counter() - t0
-            launches = dict(seg.LAUNCHES)
+            launches = {name: n for counter in counters for name, n in counter.items()}
 
-            idx = {file_hash(i): i for i in range(N_VIDEOS)}
+            idx = {file_hash(i): i for i in range(n_videos)}
             got = {tuple(sorted((idx[a], idx[b]))) for a, b in server.relationships}
             unsearched = db.execute(
                 "SELECT count(*) FROM shape_search_cache WHERE searched_distance IS NULL"
@@ -387,20 +510,24 @@ def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernel: s
                 (search_threshold,),
             ).fetchone()[0]
             log(
-                f"phase {phase}: N={N_VIDEOS} ({n_empty} empty hashes): marked {len(got)} "
-                f"pairs (planted {len(expected)}), missing {len(expected - got)}, extras "
-                f"{len(got - expected)}, unsearched left {unsearched}, reported {pairs}; "
-                f"kernel launches {launches}"
+                f"phase {phase}: N={n_videos} ({n_empty} empty hashes), {kwargs}: marked "
+                f"{len(got)} pairs (planted {len(expected)}), missing {len(expected - got)}, "
+                f"extras {len(got - expected)}, unsearched left {unsearched}, reported {pairs}; "
+                f"kernel launches {launches}; torch.matmul calls inside the bucketed route "
+                f"{matmuls[0]}"
             )
             if got != expected or pairs != len(expected):
                 raise AssertionError(f"phase {phase}: the marked pairs differ from the planted set")
             if unsearched:
                 raise AssertionError(f"phase {phase}: {unsearched} files left unsearched")
-            if launches[kernel] == 0:
-                raise AssertionError(f"phase {phase}: {kernel} never launched")
-            others = {name: n for name, n in launches.items() if name != kernel and n}
+            idle = sorted(name for name in kernels if launches[name] == 0)
+            if idle:
+                raise AssertionError(f"phase {phase}: {idle} never launched")
+            others = {name: n for name, n in launches.items() if name not in kernels and n}
             if others:
                 raise AssertionError(f"phase {phase}: other kernels launched: {others}")
+            if matmuls[0]:
+                raise AssertionError(f"phase {phase}: the bucketed route ran torch.matmul")
             t0 = time.perf_counter()
             pairs2 = deduper.deduplicate(skip_hashing=True)
             t_rerun = time.perf_counter() - t0
@@ -414,13 +541,17 @@ def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernel: s
             for label, sec in timers.seconds.items():
                 n = f", {timers.pairs[label]} pairs" if label in timers.pairs else ""
                 log(f"phase {phase}   {label}: {sec:.3f} s{n}")
-            kernel_ms = timers.kernel_ms()
-            slots = timers.block_steps() * 2048 * 2048
-            log(
-                f"phase {phase}   {kernel} device time: {kernel_ms:.3f} ms over "
-                f"{len(timers.events)} launches, {timers.block_steps()} (row block, valid "
-                f"step) pairs, {slots / (kernel_ms / 1e3):.4g} frame-pair slots/s"
-            )
+            for name in sorted(kernels):
+                kernel_ms = timers.kernel_ms(name)
+                done = timers.work_done(name)
+                unit = "real frame pairs" if name == "similarity_block" else (
+                    "frame-pair slots ((row block, valid step) pairs x 2048 x 2048)"
+                )
+                log(
+                    f"phase {phase}   {name} device time: {kernel_ms:.3f} ms over "
+                    f"{timers.launches(name)} launches, {done} {unit}, "
+                    f"{done / max(kernel_ms / 1e3, 1e-9):.4g} per s"
+                )
             db.close()
         finally:
             server.stop()
@@ -476,7 +607,7 @@ def pdq_test_frames(n: int = 512):
     with the kind of each."""
     import numpy as np
 
-    from hydrus_video_deduplicator_tpu.decode import extract_frames
+    from hydrus_video_deduplicator_tpu_torch.decode import extract_frames
 
     rng = np.random.default_rng(11)
     frames, kinds = [], []
@@ -513,9 +644,9 @@ def phase4_pdq_kernel_vs_plain(dev):
     import numpy as np
     import torch
 
-    from hydrus_video_deduplicator_tpu.vpdq import python_ref
     from hydrus_video_deduplicator_tpu_torch.models import pdq as mpdq
     from hydrus_video_deduplicator_tpu_torch.ops import pdq_filter
+    from hydrus_video_deduplicator_tpu_torch.vpdq import python_ref
 
     t0 = time.perf_counter()
     frames, kinds = pdq_test_frames()
@@ -548,7 +679,19 @@ def phase4_pdq_kernel_vs_plain(dev):
         f"{len(checked)} frames and == plain hash on all; B={x.shape[0]}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, fused hash (kernel + tail) {hash_ms:.4f} ms"
     )
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # the function's float32 adds and multiplies per 8-row band (csrc/pdq_filter.cu):
+    # luma (3 multiplies, 2 adds) and rep 1's rows pass (3 adds, 1 multiply)
+    # on 7 staged rows, rep 1's cols pass on 4 rows, rep 2's cols pass on 1
+    # row and its rows pass at the 64 sites
+    band_ops = 5 * 7 * 512 + 4 * 7 * 512 + 4 * 4 * 512 + 4 * 512 + 4 * 64
+    bound_ms, bound_by = bound(
+        tensor_bytes(x, got), x.shape[0] * 64 * band_ops, FP32_OPS_PER_S
+    )
+    log(f"phase 4: bound {bound_ms:.4f} ms ({bound_by})")
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
 
 
 def build_stage1_store():
@@ -596,8 +739,8 @@ def host_frame_split(videos) -> tuple[str, dict[str, float], int]:
     transpose. Every frame is a 1 fps sample here, so each one counts."""
     import numpy as np
 
-    from hydrus_video_deduplicator_tpu.decode import backends
-    from hydrus_video_deduplicator_tpu.decode.frames import resize_nearest_512
+    from hydrus_video_deduplicator_tpu_torch.decode import backends
+    from hydrus_video_deduplicator_tpu_torch.decode.frames import resize_nearest_512
 
     ms = {"decode": 0.0, "resize": 0.0, "transpose": 0.0}
     n, name = 0, ""
@@ -626,10 +769,9 @@ def phase5_stage1():
     import numpy as np
     import torch
 
-    import hydrus_video_deduplicator_tpu.db.DedupeDB as DedupeDB
-    from hydrus_video_deduplicator_tpu import hashing
-    from hydrus_video_deduplicator_tpu.client import HVDClient
-    from hydrus_video_deduplicator_tpu_torch import dedup
+    from hydrus_video_deduplicator_tpu_torch import dedup, hashing
+    from hydrus_video_deduplicator_tpu_torch.client import HVDClient
+    from hydrus_video_deduplicator_tpu_torch.db import DedupeDB
     from hydrus_video_deduplicator_tpu_torch.models.vpdq import GpuVideoHasher
     from hydrus_video_deduplicator_tpu_torch.ops import pdq_filter
     from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
@@ -711,7 +853,8 @@ def phase5_stage1():
             )
             log(
                 f"phase 5 stage 1: {sec:.3f} s, {hs['frames'] / sec:.1f} hashed frames/s; "
-                f"kernel device time {timers.kernel_ms():.3f} ms over {len(timers.events)} "
+                f"kernel device time {timers.kernel_ms('pdq_filter_batch'):.3f} ms over "
+                f"{timers.launches('pdq_filter_batch')} "
                 f"launches; {hs['hash_s']:.3f} s inside the hasher, whose batch loop waited "
                 f"{hs['decode_wait_s']:.3f} s on decode ({100 * hs['decode_wait_s'] / sec:.1f} % "
                 f"of stage 1) and {hs['device_wait_s']:.3f} s on the device "
@@ -842,6 +985,7 @@ def phase6_similarity_vs_plain(blobs, dev):
             lambda: seg.exists_mask_kernel_plain(*sweep_args, 79),
         ),
     }
+    every_step = torch.ones_like(valid)
     result = {}
     for label, (kernel, plain) in cases.items():
         got, want = kernel(), plain()
@@ -852,14 +996,101 @@ def phase6_similarity_vs_plain(blobs, dev):
             raise AssertionError(f"phase 6 {label}: kernel != plain: max abs error {err}")
         if n_nonzero == 0:
             raise AssertionError(f"phase 6 {label}: the plain version found nothing")
+        if label.startswith("every-step"):
+            inputs, steps = sweep_args, every_step
+        elif label.startswith("counts"):
+            inputs, steps = (a_words, slot_a, b_words, slot_b, valid), valid
+        else:
+            inputs, steps = sims_args, valid
+        pairs = segment_frame_pairs(slot_a, slot_b, steps)
+        bound_ms, bound_by = popcount_bound(pairs, *inputs, got)
         del got, want
         ms = cuda_time_ms(kernel, 10)
         plain_ms = cuda_time_ms(plain, 1, warmup=0)  # the check above warmed it
         log(
             f"phase 6 {label}: bit-equal ({n_nonzero} nonzero outputs); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms per call"
+            f"plain {plain_ms:.4f} ms per call; {pairs} real frame pairs, bound "
+            f"{bound_ms:.4f} ms ({bound_by})"
         )
-        result[label] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+        result[label] = {
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    return result
+
+
+def phase8_block_vs_plain(blobs, dev):
+    import numpy as np
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity as ops_sim
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
+    from hydrus_video_deduplicator_tpu_torch.dedup import HydrusVideoDeduplicator as D
+    from hydrus_video_deduplicator_tpu_torch.parallel import engine
+
+    t0 = time.perf_counter()
+    index = engine.CorpusIndex(blobs)
+    # rows of one launch: the long videos of the first checkpoint chunk, as
+    # the orchestrator sizes its chunks
+    chunk_rows = max(D.SEARCH_CHECKPOINT_ROWS, -(-len(blobs) // D.SEARCH_MAX_CHUNKS))
+
+    def tile(pad: int, first_chunk: bool):
+        """(words, counts) of bucket ``pad``, as the route stages it (only
+        the first checkpoint chunk's videos for a row tile), with the edge
+        cases: an empty video, counts of 1, pad - 1 and pad (frames past
+        the real count then hold zero words), a real all-zero frame."""
+        if pad == 1:  # the library holds few one-frame videos: take 1-frame clips
+            idx = np.arange(chunk_rows)
+            frames = np.stack([ops_sim.blobs_to_packed(blobs[i][:32] or bytes(32)) for i in idx])
+            counts = np.ones(len(idx), dtype=np.int32)
+        else:
+            idx, frames, counts = index.bucket_arrays(pad)
+        if first_chunk:
+            frames, counts = frames[idx < chunk_rows], counts[idx < chunk_rows]
+        frames, counts = frames.copy(), counts.copy()
+        for k, c in enumerate([0, 1, pad - 1, pad][: len(counts)]):
+            counts[k] = c
+        if len(counts) > 4:
+            frames[4, 0] = 0
+        return ops_sim.to_words(frames, dev), torch.from_numpy(counts).to(dev)
+
+    long_rows, long_cols = tile(1024, True), tile(1024, False)
+    cases = {f"1024 x {pb}": (long_rows, tile(pb, False), 1024, pb) for pb in (1, 64, 512)}
+    cases["1024 x 1024"] = (long_rows, long_cols, 1024, 1024)
+    cases["64 x 1024"] = (tile(64, True), long_cols, 64, 1024)
+    log(
+        "phase 8 inputs (row videos x column videos): "
+        + ", ".join(f"{k}: {len(r[1])} x {len(c[1])}" for k, (r, c, _, _) in cases.items())
+        + f"; {time.perf_counter() - t0:.1f} s to build"
+    )
+    result = {}
+    for label, ((rw, rc), (cw, cc), pa, pb) in cases.items():
+        args = (rw, rc, cw, cc, pa, pb)
+        got = sb.similarity_block(*args)
+        want = sb.similarity_block_plain(*args)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 8 {label}: kernel != plain: max abs error {err}")
+        n_nonzero, n_100 = int((want != 0).sum()), int((want == 100).sum())
+        if n_nonzero == 0 or (pa == pb and n_100 == 0):
+            raise AssertionError(f"phase 8 {label}: the plain version found too little")
+        pairs = int(rc.clamp(0, pa).to(torch.int64).sum()) * int(
+            cc.clamp(0, pb).to(torch.int64).sum()
+        )
+        bound_ms, bound_by = popcount_bound(pairs, rw, rc, cw, cc, got)
+        del got, want
+        ms = cuda_time_ms(lambda: sb.similarity_block(*args), 10)
+        plain_ms = cuda_time_ms(lambda: sb.similarity_block_plain(*args), 1, warmup=0)
+        log(
+            f"phase 8 {label}: bit-equal ({n_nonzero} nonzero, {n_100} at 100); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms per call; {pairs} real frame pairs, "
+            f"{pairs / (ms / 1e3):.4g} per s, bound {bound_ms:.4f} ms ({bound_by})"
+        )
+        result[label] = {
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
     return result
 
 
@@ -873,47 +1104,64 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     phase0_build()
-    blobs, expected, n_empty, min_sim = build_library()
+    blobs, expected, n_empty, min_sim = build_library(N_VIDEOS)
     timing = phase1_kernel_vs_plain(blobs, dev)
     sweep_launches = stage4_orchestrator(
-        2, blobs, expected, n_empty, min_sim, "exists_mask_sweep"
+        2, blobs, expected, n_empty, min_sim, {"exists_mask_sweep"}
     )["exists_mask_sweep"]
     phase3_cli()
     pdq_timing = phase4_pdq_kernel_vs_plain(dev)
     pdq_launches = phase5_stage1()
     seg_timing = phase6_similarity_vs_plain(blobs, dev)
     seg_launches = stage4_orchestrator(
-        7, blobs, expected, n_empty, min_sim, "similarity_segments", search_prefilter="none"
+        7, blobs, expected, n_empty, min_sim, {"similarity_segments"}, search_prefilter="none"
     )
     del blobs
-    if "jax" in sys.modules:
-        raise AssertionError("the port's main path imported jax")
+    blobs, expected, n_empty, min_sim = build_library(N_VIDEOS, LONG_CLIP, LONG_PLANTS["auto"])
+    block_timing = phase8_block_vs_plain(blobs, dev)
+    block_launches = stage4_orchestrator(
+        9, blobs, expected, n_empty, min_sim, {"exists_mask_sweep", "similarity_block"},
+        search_prefilter="auto",
+    )["similarity_block"]
+    del blobs
+    blobs, expected, n_empty, min_sim = build_library(N_NONE, LONG_CLIP, LONG_PLANTS["none"])
+    stage4_orchestrator(
+        9, blobs, expected, n_empty, min_sim, {"similarity_segments", "similarity_block"},
+        search_prefilter="none",
+    )
+    del blobs
+    reference = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "hydrus_video_deduplicator_tpu")
+    )
+    if reference:
+        raise AssertionError(f"the run imported jax or the JAX package: {reference[:10]}")
 
-    def entry(launches, *labels):
+    def entry(launches, timings, *labels):
+        """(launches on its path, max abs error, and the first label's kernel
+        ms, plain ms, bound ms and bound)."""
+        first = timings[labels[0]]
         return (
-            launches,
-            max(seg_timing[k]["max_abs_err"] for k in labels),
-            seg_timing[labels[0]]["ms"],
-            seg_timing[labels[0]]["plain_ms"],
+            launches, max(timings[k]["max_abs_err"] for k in labels),
+            first["ms"], first["plain_ms"], first["bound_ms"], first["bound_by"],
         )
 
-    # (launches on its path, max abs error, kernel ms, plain ms); ms at the
-    # path's mode: tolerance 79 for the sweep, the mask for kernel 3
+    # ms at the path's mode: tolerance 79 for the sweep, the mask for kernel
+    # 3, the long rows against the 33-64-frame bucket (the most column
+    # frames) for kernel 5
     measured = {
-        "exists_mask_sweep": (
-            sweep_launches,
-            max(t["max_abs_err"] for t in timing.values()),
-            timing[79]["ms"],
-            timing[79]["plain_ms"],
-        ),
-        "pdq_filter": (
-            pdq_launches, pdq_timing["max_abs_err"], pdq_timing["ms"], pdq_timing["plain_ms"]
-        ),
+        "exists_mask_sweep": entry(sweep_launches, timing, 79, 31),
+        "pdq_filter": entry(pdq_launches, {"b512": pdq_timing}, "b512"),
         "similarity_segments": entry(
-            seg_launches["similarity_segments"], "mask 75", "mask 1", "sims"
+            seg_launches["similarity_segments"], seg_timing, "mask 75", "mask 1", "sims"
         ),
-        "exists_counts": entry(seg_launches["exists_counts"], "counts 31", "counts 79"),
-        "exists_mask_kernel": entry(seg_launches["exists_mask_kernel"], "every-step sweep 79"),
+        "exists_counts": entry(
+            seg_launches["exists_counts"], seg_timing, "counts 31", "counts 79"
+        ),
+        "exists_mask_kernel": entry(
+            seg_launches["exists_mask_kernel"], seg_timing, "every-step sweep 79"
+        ),
+        "similarity_block": entry(block_launches, block_timing, "1024 x 64", *block_timing),
     }
     print(card_line())
     print(json.dumps({
@@ -927,8 +1175,11 @@ def main() -> int:
                 "max_abs_err": err,
                 "ms": ms,
                 "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
             }
-            for name, (launches, err, ms, plain_ms) in measured.items()
+            for name, (launches, err, ms, plain_ms, bound_ms, bound_by) in measured.items()
         ]
     }))
     print(json.dumps({

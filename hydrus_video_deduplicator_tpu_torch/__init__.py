@@ -2,8 +2,8 @@
 
 The JAX package ``hydrus_video_deduplicator_tpu`` is the reference. This
 package keeps its module layout so each counterpart is easy to find, and
-runs stage 1, perceptual hashing, and stage 4, the exact pruned all-pairs
-search, on an NVIDIA GPU:
+runs stage 1, perceptual hashing, and stage 4, the exact all-pairs search,
+on an NVIDIA GPU:
 
 - ``models.pdq``              — the plain PyTorch PDQ pipeline, bit-exact to
                                 the numpy oracle.
@@ -13,16 +13,21 @@ search, on an NVIDIA GPU:
                                 video hasher of stage 1.
 - ``ops.similarity``          — bit-packed hash primitives (numpy + torch).
 - ``ops.similarity_segments`` — the segment packers, the plain PyTorch
-                                existence mask sweep and the wrapper of its
-                                hand-written CUDA kernel.
+                                existence mask sweep and segment similarity,
+                                and the wrappers of their CUDA kernels.
+- ``ops.similarity_block``    — the bucketed video-pair similarity block
+                                and the wrapper of its CUDA kernel.
 - ``ops.pair_verify``         — exact similarity of candidate pairs.
-- ``parallel.engine``         — ``GpuSearchEngine``, the pruned search.
+- ``parallel.engine``         — ``GpuSearchEngine``, the pruned and the
+                                unpruned search.
 - ``dedup`` / ``entrypoint``  — the orchestrator and the CLI.
 
-Host-only modules (``client``, ``db``, ``decode``, ``native``, ``vpdq``,
-``ops.reps``, ``config``, the orchestrator base class) are imported from
-the JAX package; none of them imports ``jax``, and neither does this
-package.
+The host layer is the package's own copy of the JAX package's host modules,
+under the same names: ``client``, ``config``, ``db``, ``decode``,
+``dedup_util``, ``hashing``, ``native`` (the C++ hasher, ``matchHashBytes``
+and rep clustering, built by ``make`` into ``native/build/`` at first use),
+``ops.reps``, ``page_logger`` and ``vpdq``. The package imports neither
+``jax`` nor anything of the JAX package.
 """
 
-from hydrus_video_deduplicator_tpu.__about__ import __version__  # noqa: F401
+from .__about__ import __version__  # noqa: F401

@@ -29,17 +29,11 @@ try:
 except ImportError:  # pragma: no cover
     pass
 
-from hydrus_video_deduplicator_tpu import config
-from hydrus_video_deduplicator_tpu.client import (
-    ClientAPIException,
-    FailedHVDClientConnection,
-    create_client,
-)
-from hydrus_video_deduplicator_tpu.db import DedupeDB
-from hydrus_video_deduplicator_tpu.dedup_util import print_and_log
-
-from . import __version__
+from . import __version__, config
+from .client import ClientAPIException, FailedHVDClientConnection, HVDClient, create_client
+from .db import DedupeDB
 from .dedup import HydrusVideoDeduplicator
+from .dedup_util import print_and_log
 
 
 class ExitException(SystemExit):
@@ -80,10 +74,7 @@ def main(
         # flag > env > default; the decode layer reads the env var lazily
         import os
 
-        from hydrus_video_deduplicator_tpu.decode.backends import (
-            DECODE_BACKEND_ENV,
-            DECODE_BACKEND_MODES,
-        )
+        from .decode.backends import DECODE_BACKEND_ENV, DECODE_BACKEND_MODES
 
         if decode_backend not in DECODE_BACKEND_MODES:
             print(f"[red] ERROR: Invalid decode backend: {decode_backend!r}.")
@@ -149,8 +140,6 @@ def main(
         exit_from_failure()
 
     if debug:
-        from hydrus_video_deduplicator_tpu.client import HVDClient
-
         HVDClient._log.setLevel(logging.DEBUG)
 
     if DedupeDB.does_db_exist():

@@ -2,7 +2,7 @@
 package's ``models/pdq.py``).
 
 Implements the exact-by-construction PDQ spec of
-``hydrus_video_deduplicator_tpu.vpdq.pdq_math`` with the same fixed op
+``vpdq.pdq_math`` (the port's copy) with the same fixed op
 order as the numpy oracle (``vpdq/python_ref.py``), and takes every
 constant from that module. Each float32 add and multiply is its own eager
 PyTorch op, so nothing is contracted into an FMA: on the CPU and on the
@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from hydrus_video_deduplicator_tpu.vpdq import pdq_math as pm
+from ..vpdq import pdq_math as pm
 
 _RECIPS = torch.from_numpy(np.asarray(pm.box_recips(pm.FRAME_DIM), dtype=np.float32))  # [512]
 _DCT = torch.from_numpy(np.asarray(pm.DCT_MATRIX, dtype=np.float32))  # [16, 64]

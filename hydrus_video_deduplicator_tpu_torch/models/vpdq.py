@@ -29,12 +29,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hydrus_video_deduplicator_tpu.decode import extract_frames
-from hydrus_video_deduplicator_tpu.vpdq import VpdqHash
-from hydrus_video_deduplicator_tpu.vpdq import pdq_math as pm
-
 from .._device import resolve_device
+from ..decode import extract_frames
 from ..ops.pdq_filter import pdq_hash_batch_fused
+from ..vpdq import VpdqHash
+from ..vpdq import pdq_math as pm
 from .pdq import words_to_blobs
 
 #: device batch (frames) on CUDA, and on the CPU (the tests' plain path)

@@ -45,6 +45,10 @@ KERNELS: dict[str, tuple[list[str], dict[str, list]]] = {
         [],
         {"hvd_similarity_segments": [_ptr] * 8 + [_int] * 5 + [_ptr]},
     ),
+    "similarity_block": (
+        [],
+        {"hvd_similarity_block": [_ptr] * 5 + [_int] * 4 + [_ptr]},
+    ),
 }
 
 

@@ -17,9 +17,8 @@ import ctypes
 
 import torch
 
-from hydrus_video_deduplicator_tpu.vpdq import pdq_math as pm
-
 from ..models import pdq as mpdq
+from ..vpdq import pdq_math as pm
 
 N = pm.FRAME_DIM  # 512
 B64 = pm.BUF_DIM  # 64

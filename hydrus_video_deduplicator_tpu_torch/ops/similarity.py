@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hydrus_video_deduplicator_tpu.vpdq import pdq_math as pm
+from ..vpdq import pdq_math as pm
 
 BYTES = pm.BYTES_PER_HASH  # 32
 LANES = BYTES // 4  # 8 words per 256-bit hash

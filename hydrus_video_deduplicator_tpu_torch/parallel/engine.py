@@ -4,7 +4,7 @@ package's ``parallel/engine.py``).
 ``GpuSearchEngine.find_pairs_pruned`` is stage 4's main path:
 
 1. host: ``ops.reps.extract_reps`` clusters each video's frames into scene
-   leaders (native C++, reused from the JAX package);
+   leaders (native C++, the port's copy of the JAX package's clustering);
 2. stage A: the existence mask sweep (``ops.similarity_segments``, a
    hand-written CUDA kernel) compares every row leader with every column
    leader at the inflated tolerance 31 + 2 * radius_cap; the column
@@ -23,10 +23,13 @@ one launch of the segment similarity kernel (``ops.similarity_segments``,
 a hand-written CUDA kernel; its plain version on the CPU) in its mask
 mode, the masks drain as stage A's do, and each hit's integer similarity
 is native ``matchHashBytes`` on the host. Pairs with a video of
-SEG_MAX_FRAMES+1..MAX_BUCKET frames take the bucketed route (videos padded
-to a power of two, ±1 products through ``torch.matmul``), and longer
-videos exact native comparison on the host; the pruned search reaches
-those two through ``find_pairs`` for its long-video complements.
+SEG_MAX_FRAMES+1..MAX_BUCKET frames take the bucketed route: videos padded
+to a power of two, each (row tile, column tile) of a bucket pair one launch
+of the bucketed similarity kernel (``ops.similarity_block``, a
+hand-written CUDA kernel; its plain version on the CPU), hits found on the
+device. Longer videos are compared exactly on the host. The pruned search
+reaches those two routes through ``find_pairs`` for its long-video
+complements.
 """
 
 from __future__ import annotations
@@ -39,26 +42,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hydrus_video_deduplicator_tpu.ops import reps as reps_mod
-from hydrus_video_deduplicator_tpu.vpdq import matchHashBytes
-
 from .._device import resolve_device
 from ..ops import pair_verify
+from ..ops import reps as reps_mod
 from ..ops import similarity as ops_sim
+from ..ops import similarity_block as sb
 from ..ops import similarity_segments as seg
-from ..ops.similarity import BYTES, LANES, MATCH_DOT, TOL
+from ..ops.similarity import BYTES, LANES, TOL
+from ..vpdq import matchHashBytes
 
-#: nominal row/column video tile sizes for an 8-frame bucket; tiles scale
-#: inversely with bucket frame count (see _tile_videos)
-TILE_ROWS = 128
-TILE_COLS = 1024
-#: frame budgets per tile side: a bucketed tile materializes a
-#: [row_frames x col_frames] product (32 M entries)
-TILE_ROW_FRAMES = TILE_ROWS * 8
-TILE_COL_FRAMES = TILE_COLS * 8
 #: videos longer than this many frames skip the bucketed device path and
 #: are compared exactly on the host (native matchHashBytes)
-MAX_BUCKET = 1024
+MAX_BUCKET = sb.MAX_FRAMES
 
 
 def _bucket_size(n_frames: int) -> int:
@@ -66,11 +61,6 @@ def _bucket_size(n_frames: int) -> int:
     while p < n_frames:
         p <<= 1
     return p
-
-
-def _tile_videos(nominal: int, frame_budget: int, pad: int) -> int:
-    """Videos per tile for a bucket of ``pad`` frames, at least 1."""
-    return max(1, min(nominal, frame_budget // pad))
 
 
 def iter_blob_items(src, indices):
@@ -195,31 +185,6 @@ def state_from_jax(col_state: dict) -> dict:
     return out
 
 
-def _tile_similarity(rows_words, rows_counts, cols_words, cols_counts, pa: int, pb: int):
-    """Integer video-level similarity [TR, TC] for one bucketed tile pair.
-
-    rows_words [TR, pa, 8] / cols_words [TC, pb, 8] int32, counts [TR] /
-    [TC] int32. ±1 products in fp16 on CUDA, float32 on the CPU: exact,
-    every sum is an integer of magnitude <= 256.
-    """
-    dtype = torch.float16 if rows_words.is_cuda else torch.float32
-    tr, tc = rows_words.shape[0], cols_words.shape[0]
-    a = ops_sim.unpack_pm1(rows_words.reshape(tr * pa, LANES), dtype)
-    b = ops_sim.unpack_pm1(cols_words.reshape(tc * pb, LANES), dtype)
-    dot = torch.matmul(a, b.T).reshape(tr, pa, tc, pb)
-    dev = rows_words.device
-    va = torch.arange(pa, device=dev)[None, :] < rows_counts[:, None]  # [TR, pa]
-    vb = torch.arange(pb, device=dev)[None, :] < cols_counts[:, None]  # [TC, pb]
-    matched = (dot >= MATCH_DOT) & va[:, :, None, None] & vb[None, None, :, :]
-    ma = matched.any(dim=3).sum(dim=1, dtype=torch.int32)  # [TR, TC]
-    mb = matched.any(dim=1).sum(dim=2, dtype=torch.int32)  # [TR, TC]
-    fa = torch.clamp(rows_counts, min=1)[:, None]
-    fb = torch.clamp(cols_counts, min=1)[None, :]
-    sim = torch.minimum((100 * ma) // fa, (100 * mb) // fb)
-    nonempty = (rows_counts[:, None] > 0) & (cols_counts[None, :] > 0)
-    return torch.where(nonempty, sim, torch.zeros_like(sim))
-
-
 def _with_similarities(hits, row_phashes, all_phashes) -> list[tuple[int, int, int]]:
     """(row, col, integer similarity) for hit (row, col) pairs: native
     matchHashBytes, the kernel's own value by construction. DB-backed
@@ -251,9 +216,10 @@ class GpuSearchEngine:
     device. ``device`` defaults to CUDA and raises without it; tests pass
     ``device="cpu"`` to run every kernel's plain PyTorch version."""
 
-    #: fraction of the free device memory a row tile's sweep masks may use
-    #: (a row block's mask is 8 words x 256 slots x 4 bytes per column step:
-    #: 9 MB per row block against a 1.4M-leader column corpus)
+    #: fraction of the free device memory a launch's output may use: a row
+    #: tile's sweep masks (a row block's mask is 8 words x 256 slots x 4
+    #: bytes per column step: 9 MB per row block against a 1.4M-leader
+    #: column corpus), or a bucketed similarity block (int32 per pair)
     MASK_MEMORY_FRACTION = 0.125
     #: the same budget on the CPU, where there is no memory query
     CPU_MASK_BUDGET_BYTES = 1 << 26
@@ -358,40 +324,44 @@ class GpuSearchEngine:
         self, pa, r_idx, r_frames, r_counts, pb, c_idx, c_frames, c_counts, min_sim,
         col_tiles, col_limit,
     ):
-        tr = _tile_videos(TILE_ROWS, TILE_ROW_FRAMES, pa)
-        tc = _tile_videos(TILE_COLS, TILE_COL_FRAMES, pb)
-        tiles = col_tiles.get(pb)
-        if tiles is None:
-            # device column tiles depend only on pb: staged once per sweep
-            tiles = col_tiles[pb] = [
-                (
-                    j0,
-                    ops_sim.to_words(c_frames[j0 : j0 + tc], self.device),
-                    torch.from_numpy(c_counts[j0 : j0 + tc]).to(self.device),
-                )
-                for j0 in range(0, len(c_idx), tc)
-            ]
+        """Hits of one bucket pair: each row tile is one ``similarity_block``
+        launch against the whole column bucket, with ``sim >= min_sim``
+        found on the device. A bucket's columns are staged once per sweep;
+        under col_limit a launch takes only the columns below it (c_idx
+        ascends). Row tiles are as many videos as the int32 block's memory
+        budget allows."""
+        n_live = len(c_idx)
+        if col_limit is not None:
+            n_live = int(np.searchsorted(c_idx, col_limit))
+        if n_live == 0:
+            return []
+        staged = col_tiles.get(pb)
+        if staged is None:
+            # device columns depend only on pb: staged once per sweep
+            staged = col_tiles[pb] = (
+                ops_sim.to_words(c_frames, self.device),
+                torch.from_numpy(c_counts).to(self.device),
+            )
+        cf, cc = staged[0][:n_live], staged[1][:n_live]
+        tr = max(1, min(len(r_idx), self._output_budget() // (4 * n_live)))
         out = []
         for i0 in range(0, len(r_idx), tr):
             rf = ops_sim.to_words(r_frames[i0 : i0 + tr], self.device)
             rc = torch.from_numpy(r_counts[i0 : i0 + tr]).to(self.device)
-            for j0, cf, cc in tiles:
-                if col_limit is not None and int(c_idx[j0]) >= col_limit:
-                    continue  # c_idx ascends: every later column is past it
-                sim = _tile_similarity(rf, rc, cf, cc, pa, pb)
-                hits = torch.nonzero(sim >= min_sim).cpu().numpy()
-                if len(hits):
-                    sims = sim[hits[:, 0], hits[:, 1]].cpu().numpy()
-                    ri = r_idx[i0 + hits[:, 0]]
-                    cj = c_idx[j0 + hits[:, 1]]
-                    keep = cj < col_limit if col_limit is not None else slice(None)
-                    out.extend(zip(ri[keep].tolist(), cj[keep].tolist(), sims[keep].tolist()))
-                if self._progress_cb is not None:
-                    cj_n = len(cf)
-                    if col_limit is not None:
-                        cj_n = int(np.searchsorted(c_idx[j0 : j0 + tc], col_limit))
-                    self._progress_done += len(rf) * cj_n
-                    self._progress_cb(self._progress_done, self._progress_total)
+            sim = sb.similarity_block(rf, rc, cf, cc, pa, pb)
+            hits = torch.nonzero(sim >= min_sim).cpu().numpy()
+            if len(hits):
+                sims = sim[hits[:, 0], hits[:, 1]].cpu().numpy()
+                out.extend(
+                    zip(
+                        r_idx[i0 + hits[:, 0]].tolist(),
+                        c_idx[hits[:, 1]].tolist(),
+                        sims.tolist(),
+                    )
+                )
+            if self._progress_cb is not None:
+                self._progress_done += len(rf) * n_live
+                self._progress_cb(self._progress_done, self._progress_total)
         return out
 
     def _long_video_pairs(self, rows, row_phashes, cols, all_phashes, min_sim, col_limit=None):
@@ -648,15 +618,17 @@ class GpuSearchEngine:
             "n_steps": n_steps,
         }
 
+    def _output_budget(self) -> int:
+        """Bytes a launch's output may take on this engine's device."""
+        if self.device.type == "cuda":
+            free, _total = torch.cuda.mem_get_info(self.device)
+            return int(free * self.MASK_MEMORY_FRACTION)
+        return self.CPU_MASK_BUDGET_BYTES
+
     def _row_blocks_per_tile(self, n_row_blocks: int, n_steps: int) -> int:
         """Row blocks per sweep launch, from the memory its masks take."""
         mask_bytes = seg.MASK_WORDS * n_steps * seg.STEP_SLOTS * 4
-        if self.device.type == "cuda":
-            free, _total = torch.cuda.mem_get_info(self.device)
-            budget = int(free * self.MASK_MEMORY_FRACTION)
-        else:
-            budget = self.CPU_MASK_BUDGET_BYTES
-        return max(1, min(n_row_blocks, 65535, budget // mask_bytes))
+        return max(1, min(n_row_blocks, 65535, self._output_budget() // mask_bytes))
 
     def _segment_route(self, seg_rows, cols_dev, col_limit, launch):
         """Hit (row, col) corpus pairs of seg_rows against staged columns.

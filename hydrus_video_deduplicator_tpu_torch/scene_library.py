@@ -1,0 +1,169 @@
+"""A synthetic scene library of packed VPDQ hashes with planted duplicates.
+
+The generative model of the JAX package's ``artifacts/sweep_scenes.py``,
+as a function of the library size, the seed, the frame clip and the plants
+(and no module state): at seed 7 with the 512-frame clip it gives that
+script's blobs and plants byte for byte.
+
+- frame count ~ LogNormal(ln 48, 0.9), rounded, clipped to [1, clip];
+- shots: geometric with mean SHOT_MEAN = 6 frames, a uniform random 256-bit
+  anchor per shot;
+- within-shot drift: frame t of a shot differs from the anchor by about
+  Binomial(256, min(0.012 t, 0.08)) bits;
+- planted duplicates: re-encodes (every frame XOR up to REENC_BITS random
+  bits) as adjacent pairs and far pairs (k, k + n // 2), and half-clips
+  (the first half of a video, re-encoded); some empty hashes.
+
+Unrelated frames lie about 128 bits apart, so the exact set of pairs at
+or above a threshold is the planted pairs that reach it.
+
+Long plants (``long_plants``, none by default) add pairs with a side of
+LONG_MIN..clip frames, drawn after every other plant so the rest of the
+library does not change: re-encodes of long videos placed at k + n // 2
+(far) or k + 1 (adjacent), and half-clips of long videos, whose halves fall
+at or below SEG_MAX_FRAMES.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .vpdq import matchHashBytes
+
+SHOT_MEAN = 6  # mean shot length, 1 fps frames
+DRIFT_RATE = 0.012  # per-position per-bit flip probability slope
+DRIFT_SAT = 0.08  # drift saturation (~20 bits from anchor)
+REENC_BITS = 8  # re-encode noise bits per frame
+MEDIAN_FRAMES = 48.0  # median of the lognormal frames-per-video model
+MIN_SIM = 75
+#: planted pairs, each capped by the library size n: adjacent re-encodes
+#: (n // 20), far re-encodes (n // 40), half-clips (n // 40), empty hashes
+#: (n // 50)
+N_PLANT = 1_000
+N_PLANT_FAR = 500
+N_CLIP = 300
+N_EMPTY = 100
+GEN_CHUNK = 2_000_000  # frames per generation slab (bounds RNG temps)
+#: the segment route's limit; a long video has more frames than this
+SEG_MAX_FRAMES = 512
+LONG_MIN = SEG_MAX_FRAMES + 1
+
+
+def gen_corpus(rng: np.random.Generator, n: int, clip: int = 512):
+    """Vectorised scene-model frames: (frames [F, 32] uint8, offsets [n+1])."""
+    counts = np.clip(
+        np.rint(np.exp(rng.normal(np.log(MEDIAN_FRAMES), 0.9, n))), 1, clip
+    ).astype(np.int64)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    f_total = int(offsets[-1])
+
+    # per-frame shot structure: new-shot flags -> shot ids -> position in shot
+    new_shot = rng.random(f_total) < (1.0 / SHOT_MEAN)
+    new_shot[offsets[:-1]] = True  # first frame of each video starts a shot
+    shot_id = np.cumsum(new_shot) - 1
+    n_shots = int(shot_id[-1]) + 1
+    shot_start = np.zeros(n_shots, dtype=np.int64)
+    shot_start[shot_id[new_shot]] = np.nonzero(new_shot)[0]
+    pos = np.arange(f_total, dtype=np.int64) - shot_start[shot_id]
+
+    anchors = rng.integers(0, 256, (n_shots, 32), dtype=np.uint8)
+    # drift probability per frame, quantized to AND-depth k: p = 2^-k
+    p = np.minimum(DRIFT_RATE * pos, DRIFT_SAT)
+    with np.errstate(divide="ignore"):
+        k = np.where(p > 0, np.rint(-np.log2(np.maximum(p, 1e-9))), 99).astype(np.int8)
+    k = np.clip(k, 3, 99)  # p <= 1/8 always; k=99 -> no drift (exact anchor)
+
+    frames = np.empty((f_total, 32), dtype=np.uint8)
+    for s0 in range(0, f_total, GEN_CHUNK):
+        s1 = min(s0 + GEN_CHUNK, f_total)
+        sl = slice(s0, s1)
+        fa = anchors[shot_id[sl]]
+        drift = np.zeros((s1 - s0, 32), dtype=np.uint8)
+        kk = k[sl]
+        active = kk < 99
+        if active.any():
+            depth = int(kk[active].max())
+            mask = rng.integers(0, 256, (int(active.sum()), 32), dtype=np.uint8)
+            for d in range(2, depth + 1):
+                deeper = kk[active] >= d
+                mask[deeper] &= rng.integers(0, 256, (int(deeper.sum()), 32), dtype=np.uint8)
+            drift[active] = mask
+        frames[sl] = fa ^ drift
+    return frames, offsets
+
+
+def build_corpus(n: int, seed: int = 7, clip: int = 512, long_plants=(0, 0, 0)):
+    """The library with its plants: (blobs, expected, n_empty).
+
+    ``long_plants``: how many long (adjacent, far, half-clip) pairs to add.
+    ``expected`` maps (a, b) AND (b, a) video-index pairs to the exact
+    integer similarity of every planted pair scoring >= MIN_SIM.
+    """
+    rng = np.random.default_rng(seed)
+    frames, offsets = gen_corpus(rng, n, clip)
+    blobs = [frames[offsets[i] : offsets[i + 1]].tobytes() for i in range(n)]
+    del frames
+
+    def reencode(src: bytes) -> bytes:
+        arr = np.frombuffer(src, dtype=np.uint8).reshape(-1, 32).copy()
+        pos = rng.integers(0, 256, (arr.shape[0], REENC_BITS))
+        for f in range(arr.shape[0]):  # planted pairs only — not corpus-scale
+            for pbit in pos[f]:
+                arr[f, pbit // 8] ^= np.uint8(1 << (pbit % 8))
+        return arr.tobytes()
+
+    n_plant = min(N_PLANT, n // 20)
+    n_far = min(N_PLANT_FAR, n // 40)
+    n_clip = min(N_CLIP, n // 40)
+    n_empty = min(N_EMPTY, n // 50)
+    plant_pairs = [(2 * kk, 2 * kk + 1) for kk in range(n_plant)]
+    far0 = 2 * n_plant
+    plant_pairs += [(far0 + kk, far0 + kk + n // 2) for kk in range(n_far)]
+    clip0 = far0 + n_far
+    clip_pairs = [(clip0 + 2 * kk, clip0 + 2 * kk + 1) for kk in range(n_clip)]
+    for a, b in plant_pairs:
+        blobs[b] = reencode(blobs[a])
+    for a, b in clip_pairs:
+        half = (len(blobs[a]) // 32 + 1) // 2 * 32
+        blobs[b] = reencode(blobs[a][:half])
+    empties = rng.choice(
+        np.arange(clip0 + 2 * n_clip, n - n // 2 - 1), size=n_empty, replace=False
+    )
+    for e in empties:
+        blobs[int(e)] = b""
+
+    long_adjacent, long_far, long_clip = long_plants
+    if any(long_plants):
+        used = {i for pair in plant_pairs + clip_pairs for i in pair}
+        used |= {int(e) for e in empties}
+        long_src = [i for i, b in enumerate(blobs) if len(b) // 32 >= LONG_MIN and i not in used]
+
+        def take(limit: int, offset: int, below: int) -> list[tuple[int, int]]:
+            pairs: list[tuple[int, int]] = []
+            for i in long_src:
+                if len(pairs) == limit:
+                    break
+                if i < below and i + offset < n and not {i, i + offset} & used:
+                    used.update((i, i + offset))
+                    pairs.append((i, i + offset))
+            return pairs
+
+        far_long = take(long_far, n // 2, n // 2)
+        adjacent_long = take(long_adjacent, 1, n)
+        clip_long = take(long_clip, 1, n)
+        for a, b in far_long + adjacent_long:
+            blobs[b] = reencode(blobs[a])
+        for a, b in clip_long:
+            half = (len(blobs[a]) // 32 + 1) // 2 * 32
+            blobs[b] = reencode(blobs[a][:half])
+        plant_pairs += far_long + adjacent_long
+        clip_pairs += clip_long
+
+    expected = {}
+    for a, b in plant_pairs + clip_pairs:
+        s = int(matchHashBytes(blobs[a], blobs[b]))
+        if s >= MIN_SIM:
+            expected[(a, b)] = s
+            expected[(b, a)] = s
+    return blobs, expected, n_empty

@@ -44,7 +44,7 @@ def fake_toolkit(tmp_path, monkeypatch):
 def test_every_source_has_a_library_and_every_library_a_source():
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert sources == set(_build.KERNELS) == {
-        "exists_mask_sweep", "pdq_filter", "similarity_segments"
+        "exists_mask_sweep", "pdq_filter", "similarity_block", "similarity_segments"
     }
 
 

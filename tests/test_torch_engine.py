@@ -17,6 +17,7 @@ import torch
 
 from hydrus_video_deduplicator_tpu.parallel.engine import TpuSearchEngine
 from hydrus_video_deduplicator_tpu_torch.ops import pair_verify
+from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
 from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
 from hydrus_video_deduplicator_tpu_torch.parallel import engine as eng
 from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
@@ -31,14 +32,27 @@ def _port():
 @pytest.fixture(scope="module")
 def corpus():
     """Mixed scene corpus plus a 1100-frame video and its re-encode (past
-    both the segment and the bucketed limits) and a 600-frame one; the JAX
-    engines' all-pairs results at min_sim 1 are computed once."""
+    both the segment and the bucketed limits), two 600-frame ones, and the
+    edges of the 1024 bucket: a 1024-frame video and its re-encoded first
+    half (512 frames, across the segment limit), and a 513-frame video
+    that holds a short video's frames after a real all-zero frame (a
+    short x long pair scoring above 0 in one direction only, and a zero
+    frame beside the bucket's all-zero padding); the JAX engines' all-pairs
+    results at min_sim 1 are computed once."""
     rng = np.random.default_rng(4321)
     blobs = _mixed_corpus(rng, long_video=True)  # two 600-frame videos last
     very_long = _scene_video(rng, 110, 10)
     assert len(very_long) > 1024
     blobs.insert(10, very_long.tobytes())
     blobs.insert(20, np.stack([_flip(rng, f, 6) for f in very_long]).tobytes())
+    full = _scene_video(rng, 64, 16)
+    assert len(full) == 1024
+    blobs.insert(5, full.tobytes())
+    blobs.insert(15, np.stack([_flip(rng, f, 6) for f in full[:512]]).tobytes())
+    short = np.frombuffer(blobs[3], np.uint8).reshape(-1, 32)
+    filler = _scene_video(rng, 1, 512 - len(short))
+    blobs.append(np.concatenate([np.zeros((1, 32), np.uint8), short, filler]).tobytes())
+    assert len(blobs[-1]) // 32 == 513
     brute = sorted(TpuSearchEngine(force_segments=True).find_pairs(blobs, blobs, 1))
     pruned = sorted(TpuSearchEngine(force_segments=True).find_pairs_pruned(blobs, blobs, 1))
     return blobs, brute, pruned
@@ -155,6 +169,34 @@ def test_find_pairs_routes_by_bucket(corpus, monkeypatch):
     got = _port().find_pairs(blobs, long_cols, 1, col_state=state)
     assert not launches and "seg_cols" not in state
     assert sorted(got) == [h for h in brute if 512 < lens[h[1]] <= 1024]
+
+
+@pytest.mark.parametrize("pruned", [False, True])
+def test_bucketed_route_runs_the_similarity_block_both_ways(corpus, monkeypatch, pruned):
+    """Every bucket pair with a 513-1024-frame side goes through
+    ``similarity_block``: long rows against every column bucket, short rows
+    against long columns. The pairs equal the JAX pairs with their integer
+    similarities, the 513-frame video's one-directional pair among them;
+    the pruned search reaches the route through its complements."""
+    blobs, brute, _ = corpus
+    calls = []
+    real = sb.similarity_block
+
+    def spy(rows_words, rows_counts, cols_words, cols_counts, pa, pb):
+        calls.append((pa, pb))
+        return real(rows_words, rows_counts, cols_words, cols_counts, pa, pb)
+
+    monkeypatch.setattr(sb, "similarity_block", spy)
+    engine = _port()
+    search = engine.find_pairs_pruned if pruned else engine.find_pairs
+    got = sorted(search(blobs, blobs, 1))
+    assert got == brute
+    assert all(max(pa, pb) == 1024 for pa, pb in calls)
+    assert {pb for pa, pb in calls if pa == 1024} >= {4, 8, 1024}
+    assert {pa for pa, pb in calls if pb == 1024} >= {4, 8}
+    n513 = len(blobs) - 1
+    (sim,) = [s for i, j, s in got if (i, j) == (3, n513)]
+    assert 0 < sim < 100
 
 
 def test_pruned_col_limit_state_reuse_and_rows_at(corpus):
@@ -283,7 +325,7 @@ def test_state_from_jax_sweeps_from_the_same_reps(corpus, monkeypatch):
     """A JAX engine's host-side rep cache carried into the port: the port
     sweeps from exactly those reps (no re-clustering) and finds the same
     pairs."""
-    from hydrus_video_deduplicator_tpu.ops import reps as reps_mod
+    from hydrus_video_deduplicator_tpu_torch.ops import reps as reps_mod
 
     blobs, brute, _ = corpus
     jax_state: dict = {}

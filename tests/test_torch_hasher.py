@@ -14,11 +14,11 @@ import pytest
 import torch
 
 from hydrus_video_deduplicator_tpu import hashing
-from hydrus_video_deduplicator_tpu.decode import DecodeError
 from hydrus_video_deduplicator_tpu.models.vpdq import TpuVideoHasher
-from hydrus_video_deduplicator_tpu.vpdq import pdq_math as pm
+from hydrus_video_deduplicator_tpu_torch.decode import DecodeError
 from hydrus_video_deduplicator_tpu_torch.models.vpdq import GpuVideoHasher
 from hydrus_video_deduplicator_tpu_torch.ops import pdq_filter
+from hydrus_video_deduplicator_tpu_torch.vpdq import pdq_math as pm
 
 from .make_corpus import write_y4m
 from .test_torch_orchestrator import _subset_store

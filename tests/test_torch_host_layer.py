@@ -1,0 +1,158 @@
+"""The port's own host layer against the JAX package's originals it was
+copied from: ``matchHashBytes``, the scene representatives, the perceptual
+hash of a video, the SQLite database in both directions, and the scene
+library generator; and the port's native build, which must hold when
+several processes start it at once on an empty build directory."""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from hydrus_video_deduplicator_tpu import hashing as jax_hashing
+from hydrus_video_deduplicator_tpu import vpdq as jax_vpdq
+from hydrus_video_deduplicator_tpu.db import DedupeDB as jax_db
+from hydrus_video_deduplicator_tpu.ops import reps as jax_reps
+from hydrus_video_deduplicator_tpu_torch import hashing, native, scene_library, vpdq
+from hydrus_video_deduplicator_tpu_torch.db import DedupeDB
+from hydrus_video_deduplicator_tpu_torch.ops import reps
+
+from .unit_tests.test_pruned_search import _mixed_corpus
+
+REPO = Path(__file__).resolve().parents[1]
+VIDEO = REPO / "tests" / "corpus" / "videos" / "scene_a" / "S01_h264.mp4"
+
+
+@pytest.fixture(scope="module")
+def blobs():
+    return _mixed_corpus(np.random.default_rng(2024), long_video=True)
+
+
+def test_match_hash_bytes_equals_the_original(blobs):
+    assert native.is_available()  # the port's own build, never the oracle
+    for a in blobs[::3]:
+        for b in blobs:
+            assert vpdq.matchHashBytes(a, b) == jax_vpdq.matchHashBytes(a, b)
+
+
+@pytest.mark.parametrize("radius_cap", [8, 24])
+def test_extract_reps_equals_the_original(blobs, radius_cap):
+    nonempty = [b for b in blobs if b]
+    got = reps.extract_reps(nonempty, radius_cap)
+    assert got == jax_reps.extract_reps(nonempty, radius_cap)
+    assert sum(map(len, got)) < sum(map(len, nonempty))
+    assert reps.prune_tolerance(radius_cap) == jax_reps.prune_tolerance(radius_cap)
+
+
+def test_compute_phash_of_a_corpus_video_is_byte_equal():
+    data = VIDEO.read_bytes()
+    got = hashing.compute_phash(data).bytes
+    assert len(got) > 0 and len(got) % 32 == 0
+    assert got == jax_hashing.compute_phash(data).bytes
+
+
+def _write_db(module, db_dir: Path, items: list[tuple[str, bytes]]) -> None:
+    """A fresh database with ``items`` queued, bound (the set-based drain,
+    as the gpu backend runs it) and one file's search cache marked."""
+    module.set_db_dir(db_dir)
+    module.create_db()
+    db = module.DedupeDb(module.get_db_dir(), module.get_db_name())
+    db.init_connection()
+    for file_hash, phash in items:
+        db.add_to_phashed_files_queue(file_hash, phash)
+    assert db.drain_phashed_queue_batch(len(items)) == len(items)
+    db.execute(
+        "UPDATE shape_search_cache SET searched_distance = 26 WHERE hash_id = ?",
+        (db.get_hash_id(items[0][0]),),
+    )
+    db.commit()
+    db.close()
+
+
+def _read_db(module, db_dir: Path) -> dict:
+    db = module.DedupeDb(db_dir, module.get_db_name())
+    db.init_connection()
+    try:
+        assert not db.does_need_upgrade()
+        out = {}
+        for file_hash in db.get_phashed_files():
+            hash_id = db.get_hash_id(file_hash)
+            out[file_hash] = db.get_phash(db.get_phash_id_from_hash_id(hash_id))
+        searched = db.execute(
+            "SELECT count(*) FROM shape_search_cache WHERE searched_distance = 26"
+        ).fetchone()[0]
+        return {"phashes": out, "searched": searched, "version": db.get_version()}
+    finally:
+        db.close()
+
+
+@pytest.mark.parametrize("writer, reader", [("jax", "port"), ("port", "jax")])
+def test_a_database_written_by_one_package_reads_back_in_the_other(
+    blobs, tmp_path, writer, reader
+):
+    modules = {"jax": jax_db, "port": DedupeDB}
+    items = [(f"{i:064x}", b) for i, b in enumerate(blobs)]
+    _write_db(modules[writer], tmp_path, items)
+    got = _read_db(modules[reader], tmp_path)
+    assert got == _read_db(modules[writer], tmp_path)
+    assert got["phashes"] == dict(items) and got["searched"] == 1
+
+
+def test_scene_library_equals_sweep_scenes(monkeypatch):
+    """At seed 7 with the 512-frame clip the port's generator gives the
+    blobs, plants and empties of artifacts/sweep_scenes.build_corpus."""
+    n = 2_000
+    monkeypatch.syspath_prepend(str(REPO / "artifacts"))
+    monkeypatch.setattr(sys, "argv", ["sweep_scenes", str(n)])  # read at import
+    monkeypatch.delitem(sys.modules, "sweep_scenes", raising=False)
+    import sweep_scenes
+
+    want = sweep_scenes.build_corpus(np.random.default_rng(7))
+    monkeypatch.delitem(sys.modules, "sweep_scenes")
+    got = scene_library.build_corpus(n, seed=7, clip=512)
+    assert got[0] == want[0] and got[1] == want[1] and got[2] == want[2]
+    assert len(got[1]) > 100
+
+
+def test_scene_library_long_plants():
+    """The 1024-frame clip keeps the upper tail; long plants add pairs with
+    a 513-1024-frame side, drawn after every other plant."""
+    blobs, expected, _ = scene_library.build_corpus(3_000, seed=7, clip=1024, long_plants=(4, 2, 2))
+    short, _, _ = scene_library.build_corpus(3_000, seed=7, clip=1024)
+    lens = np.asarray([len(b) // 32 for b in blobs])
+    assert lens.max() > 512 and lens.max() <= 1024
+    long_pairs = {(a, b) for a, b in expected if a < b and max(lens[a], lens[b]) > 512}
+    assert len(long_pairs) >= 6
+    changed = [i for i, (x, y) in enumerate(zip(blobs, short)) if x != y]
+    assert len(changed) == 8  # the plants' targets, and nothing else
+
+
+def test_native_library_builds_once_for_six_processes(tmp_path):
+    """Six processes load a copy of the port's native package from an empty
+    build directory at once: each loads the library, which was built once,
+    to a temporary name moved into place."""
+    pkg = tmp_path / "native_copy"
+    shutil.copytree(
+        Path(native.__file__).parent, pkg, ignore=shutil.ignore_patterns("build", "__pycache__")
+    )
+    assert not (pkg / "build").exists()
+    code = (
+        "import native_copy as n; lib = n.get_lib(); "
+        "print(lib is not None and n.match_hash_bytes(bytes(32), bytes(32)) == 100.0)"
+    )
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", code], cwd=tmp_path, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+        )
+        for _ in range(6)
+    ]
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert [o.strip() for o, _ in outs] == ["True"] * 6, [e for _, e in outs]
+    built = sorted(p.name for p in (pkg / "build").iterdir())
+    assert built == [".lock", "libhvdaccel.so"]

@@ -1,7 +1,9 @@
-"""The port imports without JAX, builds nothing at import, and starts."""
+"""The port imports without JAX and without the JAX package, builds
+nothing at import, and starts."""
 
 from __future__ import annotations
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -10,43 +12,66 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "hydrus_video_deduplicator_tpu_torch"
+JAX_PACKAGE = "hydrus_video_deduplicator_tpu"
 
-MODULES = [
-    "hydrus_video_deduplicator_tpu_torch",
-    "hydrus_video_deduplicator_tpu_torch._device",
-    "hydrus_video_deduplicator_tpu_torch.ops",
-    "hydrus_video_deduplicator_tpu_torch.ops._build",
-    "hydrus_video_deduplicator_tpu_torch.models",
-    "hydrus_video_deduplicator_tpu_torch.models.pdq",
-    "hydrus_video_deduplicator_tpu_torch.models.vpdq",
-    "hydrus_video_deduplicator_tpu_torch.ops.pdq_filter",
-    "hydrus_video_deduplicator_tpu_torch.ops.similarity",
-    "hydrus_video_deduplicator_tpu_torch.ops.similarity_segments",
-    "hydrus_video_deduplicator_tpu_torch.ops.pair_verify",
-    "hydrus_video_deduplicator_tpu_torch.parallel",
-    "hydrus_video_deduplicator_tpu_torch.parallel.engine",
-    "hydrus_video_deduplicator_tpu_torch.dedup",
-    "hydrus_video_deduplicator_tpu_torch.entrypoint",
-    "hydrus_video_deduplicator_tpu_torch.__main__",
-]
+
+def _is_reference(module: str) -> bool:
+    """jax, or the JAX package or one of its modules."""
+    return any(module == top or module.startswith(top + ".") for top in ("jax", JAX_PACKAGE))
 
 
 def test_port_imports_without_jax_or_a_build():
     """A fresh interpreter (this one already holds jax) imports every module
-    of the port: jax stays out of sys.modules and no kernel build ran."""
+    of the port: neither jax nor any module of the JAX package enters
+    sys.modules, and no kernel or native build ran."""
     code = "\n".join(
         [
-            "import importlib, sys",
-            f"for m in {MODULES!r}: importlib.import_module(m)",
+            "import importlib, pkgutil, sys",
+            "import hydrus_video_deduplicator_tpu_torch as port",
+            "names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]",
+            "for m in names: importlib.import_module(m)",
+            "from hydrus_video_deduplicator_tpu_torch import native",
             "from hydrus_video_deduplicator_tpu_torch.ops import _build",
-            "print('jax' in sys.modules, _build.load_library.cache_info().misses)",
+            "ref = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            f" or m == {JAX_PACKAGE!r} or m.startswith({JAX_PACKAGE + '.'!r}))",
+            "print(len(names), ref, native._lib is None, _build.load_library.cache_info().misses)",
         ]
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split()[-2:] == ["False", "0"], proc.stdout
+    n_modules, rest = proc.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 38  # the port's own modules and its host layer
+    assert rest.split() == ["[]", "True", "0"], proc.stdout
+
+
+def _imports(path: Path) -> list[str]:
+    """Absolute module names a file imports (import statements, and
+    importlib.import_module / runpy.run_module / __import__ of a string)."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            found += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            found.append(node.module)
+        elif isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("import_module", "run_module", "__import__"):
+                found.append(str(node.args[0].value))
+    return found
+
+
+def test_no_file_of_the_port_imports_jax_or_the_jax_package():
+    """An AST scan of every module of the port and of chip_smoke.py."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 40
+    bad = {
+        str(f.relative_to(REPO)): [m for m in _imports(f) if _is_reference(m)] for f in files
+    }
+    assert not {f: m for f, m in bad.items() if m}
 
 
 def test_cli_help_lists_the_gpu_backend():

@@ -17,9 +17,9 @@ import pytest
 import torch
 
 from hydrus_video_deduplicator_tpu import entrypoint as jax_entrypoint
-from hydrus_video_deduplicator_tpu.db import DedupeDB
 from hydrus_video_deduplicator_tpu_torch import dedup as port_dedup
 from hydrus_video_deduplicator_tpu_torch import entrypoint
+from hydrus_video_deduplicator_tpu_torch.db import DedupeDB
 from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
 
 from .fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus, corpus_file_store
@@ -122,23 +122,25 @@ def test_port_cli_spelling_and_unported_paths(tmp_path):
 
 
 def test_backend_choices_map_onto_the_base_class(monkeypatch):
+    """The port's orchestrator resolves its own backend names ("gpu", not
+    the JAX package's "tpu") and has no device mesh."""
     D = port_dedup.HydrusVideoDeduplicator
 
     def ns(search="auto", hash_="auto", device=None):
         return SimpleNamespace(
             threshold=50.0,
-            search_backend=port_dedup._INTERNAL_BACKEND[search],
-            hash_backend=port_dedup._INTERNAL_BACKEND[hash_],
+            search_backend=search,
+            hash_backend=hash_,
             device=device,
-            TPU_ENGINE_MIN_BATCH=D.TPU_ENGINE_MIN_BATCH,
-            TPU_HASH_MIN_BATCH=D.TPU_HASH_MIN_BATCH,
+            GPU_ENGINE_MIN_BATCH=D.GPU_ENGINE_MIN_BATCH,
+            GPU_HASH_MIN_BATCH=D.GPU_HASH_MIN_BATCH,
         )
 
-    assert D._pick_search_backend(ns("gpu"), 1) == "tpu"  # the base's internal value
+    assert D._pick_search_backend(ns("gpu"), 1) == "gpu"
     assert D._pick_search_backend(ns("tree"), 10_000) == "tree"
-    assert D._pick_search_backend(ns(device="cpu"), D.TPU_ENGINE_MIN_BATCH) == "tpu"
-    assert D._pick_search_backend(ns(device="cpu"), D.TPU_ENGINE_MIN_BATCH - 1) == "tree"
-    assert D._pick_hash_backend(ns(hash_="gpu", device="cpu"), 1) == "tpu"
+    assert D._pick_search_backend(ns(device="cpu"), D.GPU_ENGINE_MIN_BATCH) == "gpu"
+    assert D._pick_search_backend(ns(device="cpu"), D.GPU_ENGINE_MIN_BATCH - 1) == "tree"
+    assert D._pick_hash_backend(ns(hash_="gpu", device="cpu"), 1) == "gpu"
     assert D._pick_hash_backend(ns(hash_="native"), 10_000) == "native"
     assert D._pick_hash_backend(ns(hash_="auto", device="cpu"), 10_000) == "native"
     with monkeypatch.context() as m:
@@ -146,7 +148,11 @@ def test_backend_choices_map_onto_the_base_class(monkeypatch):
         assert D._pick_hash_backend(ns(hash_="auto"), 10_000) == "native"
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             D._pick_hash_backend(ns(hash_="gpu"), 1)
-    assert D._device_mesh() is None
+    assert not hasattr(D, "_device_mesh")
+    with pytest.raises(ValueError, match="unknown search backend"):
+        D(None, None, search_backend="tpu")
+    with pytest.raises(ValueError, match="unknown hash backend"):
+        D(None, None, hash_backend="tpu")
 
 
 def test_auto_hash_backend_follows_the_link_probe(monkeypatch):
@@ -166,15 +172,15 @@ def test_auto_hash_backend_follows_the_link_probe(monkeypatch):
         return SimpleNamespace(
             hash_backend="auto",
             device=device,
-            TPU_HASH_MIN_BATCH=D.TPU_HASH_MIN_BATCH,
-            TPU_HASH_MIN_LINK_MBPS=D.TPU_HASH_MIN_LINK_MBPS,
+            GPU_HASH_MIN_BATCH=D.GPU_HASH_MIN_BATCH,
+            GPU_HASH_MIN_LINK_MBPS=D.GPU_HASH_MIN_LINK_MBPS,
             HASH_PROBE_TIMEOUT_S=0.2,
             _device_link_mbps=probe,
         )
 
-    fast, slow = 10 * D.TPU_HASH_MIN_LINK_MBPS, D.TPU_HASH_MIN_LINK_MBPS / 10
-    assert D._pick_hash_backend(ns(fast), D.TPU_HASH_MIN_BATCH) == "tpu"
-    assert D._pick_hash_backend(ns(fast), D.TPU_HASH_MIN_BATCH - 1) == "native"
+    fast, slow = 10 * D.GPU_HASH_MIN_LINK_MBPS, D.GPU_HASH_MIN_LINK_MBPS / 10
+    assert D._pick_hash_backend(ns(fast), D.GPU_HASH_MIN_BATCH) == "gpu"
+    assert D._pick_hash_backend(ns(fast), D.GPU_HASH_MIN_BATCH - 1) == "native"
     assert D._pick_hash_backend(ns(slow), 10_000) == "native"
     assert D._pick_hash_backend(ns(None), 10_000) == "native"  # the probe failed
     assert D._pick_hash_backend(ns(fast, device="cpu"), 10_000) == "native"
