@@ -8,7 +8,10 @@ Phases (each raises on failure; nothing is caught):
    versions, and the nvcc builds of csrc/exists_mask_sweep.cu,
    csrc/pdq_filter.cu, csrc/similarity_segments.cu and
    csrc/similarity_block.cu, started together (time and the compiler's
-   register/shared-memory report of each);
+   register/shared-memory report of each); it reads the SASS of the last
+   two with cuobjdump and fails unless both hold tensor-core MMA
+   instructions (their frame pairs run on binary mma.sync: BMMA),
+   printing the counts;
 1. sweep kernel against its plain PyTorch version on the card, bit for
    bit, at the main path's shapes: one row tile of 2 row blocks of scene
    leaders against the whole column corpus of leaders of the seed-7 scene
@@ -58,7 +61,9 @@ Phases (each raises on failure; nothing is caught):
    and empty slots; the similarities, the masks at min_sim 75 and 1, and
    the counts (kernel 6) at tolerance 31 and 79; and kernel 2's
    counterpart, the sweep with every step valid; each timed with CUDA
-   events beside its plain version;
+   events beside its plain version; then the work counts (slot pairs,
+   pairs in the fragments the tensor-core kernel computes, real pairs) and a
+   yardstick, torch._int_mm over the same real frames as ±1 rows;
 7. the unpruned search at real size through the orchestrator: the phase-2
    library, a fresh database, stage 2, maintenance and
    deduplicate(skip_hashing=True) with search_prefilter="none": the marked
@@ -74,7 +79,7 @@ Phases (each raises on failure; nothing is caught):
    (frames past a video's real count then hold zero words: real all-zero
    frames beside the all-zero padding), an all-zero real frame on each side
    and self-pairs scoring 100; each timed with CUDA events beside its plain
-   version;
+   version and the torch._int_mm yardstick over the same real frames;
 9. the long tail through the orchestrator: the seed-7 library with its
    frames clipped at 1024 instead of 512 (the same draws: the seed-7
    frame-count profile with its upper tail kept) and long plants, pairs
@@ -98,11 +103,17 @@ holds both against their plain versions; phase 9's "auto" run for the
 bucketed similarity kernel. "bound_ms" is the least time the card could
 take for the timed call: the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
-peak for their type (a frame pair of the popcount kernels as a 256-wide
-int8 dot, 512 operations, against 1,979 TOP/s; the PDQ filter's float32
-adds and multiplies against 67 TFLOP/s). No single PyTorch call computes
-any of these functions, so "library_ms" is null. At the end the script
-fails if jax or any module of the JAX package was imported.
+peak for their type: the PDQ filter's float32 adds and multiplies against
+67 TFLOP/s; a real frame pair of the Hamming kernels (1, 2, 3, 5, 6) as
+one 256-deep binary product, 512 operations, against the binary tensor
+cores' rate, which the data sheet does not give, so the highest that
+mma_rates.py measured on the card (B1_OPS_PER_S; about 5.1x the int8
+rate of 1,979 TOP/s). Phases 1, 6 and 8 also print each such bound at
+the int8 rate, the definition before the kernels ran binary products.
+No single PyTorch call computes any of these functions, so "library_ms"
+is null: the torch._int_mm yardstick of phases 6 and 8 computes only the
+inner product. At the end the script fails if jax or any module of the
+JAX package was imported.
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero and prints no result. ``python3 chip_smoke.py N`` sets the
 library size of phases 2, 7, 8 and the "auto" run of phase 9 (default
@@ -113,6 +124,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import runpy
 import subprocess
 import sys
@@ -124,14 +136,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_VIDEOS = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
 THRESHOLD = 75.0
 KERNELS = {  # wrapper name -> (kernel library, the TPU kernel it replaces)
-    "exists_mask_sweep": ("exists_mask_sweep", "ops/similarity_segments.py:466"),
-    "pdq_filter": ("pdq_filter", "ops/pdq_pallas.py:113"),
-    "similarity_segments": ("similarity_segments", "ops/similarity_segments.py:106"),
-    "exists_counts": ("similarity_segments", "ops/similarity_segments.py:229"),
-    "exists_mask_kernel": ("exists_mask_sweep", "ops/similarity_segments.py:354"),
-    "similarity_block": ("similarity_block", "ops/similarity_pallas.py:112"),
+    "exists_mask_sweep": ("exists_mask_sweep", "ops/similarity_segments.py:467"),
+    "pdq_filter": ("pdq_filter", "ops/pdq_pallas.py:114"),
+    "similarity_segments": ("similarity_segments", "ops/similarity_segments.py:107"),
+    "exists_counts": ("similarity_segments", "ops/similarity_segments.py:230"),
+    "exists_mask_kernel": ("exists_mask_sweep", "ops/similarity_segments.py:355"),
+    "similarity_block": ("similarity_block", "ops/similarity_pallas.py:113"),
 }
 LIBRARIES = sorted({lib for lib, _ in KERNELS.values()})
+#: the libraries whose frame pairs run on the tensor cores, and the SASS
+#: opcodes of a tensor-core product
+MMA_LIBRARIES = ("similarity_block", "similarity_segments")
+MMA_OPCODES = re.compile(r"\b(IGMMA|HGMMA|QGMMA|IMMA|HMMA|BMMA)\b")
+#: the int8 GEMM yardstick's output chunk (int32 entries)
+YARDSTICK_CHUNK_ENTRIES = 1 << 28
 #: phase 5: scenes (two versions each), seconds per video at 1 fps, side
 STAGE1_SCENES = 5_000
 STAGE1_SECONDS = 16
@@ -146,8 +164,14 @@ LONG_PLANTS = {"auto": (60, 30, 30), "none": (40, 15, 10)}
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12
-#: a frame pair of the popcount kernels counted as a 256-wide int8 dot
+#: a frame pair of the similarity kernels: one 256-deep product, 512
+#: operations (256 multiply-adds of ±1 bytes, or 256 ANDs and popcount adds)
 OPS_PER_FRAME_PAIR = 512
+#: the binary tensor cores' rate, which the data sheet does not give: the
+#: highest that mma_rates.py measured for mma.sync.m16n8k256.b1.and.popc
+#: ("b1_and_popc", 2.02e13 frame pairs/s on an NVIDIA H100 80GB HBM3 at
+#: 700 W), about 5.1x the int8 rate for the same frame pairs
+B1_OPS_PER_S = OPS_PER_FRAME_PAIR * 2.02e13
 
 
 def log(msg: str) -> None:
@@ -195,8 +219,19 @@ def phase0_build():
     for name, (so, sec) in built.items():
         log(f"kernel build {name} (nvcc, sm_90a): {sec:.3f} s -> {os.path.relpath(so, ROOT)}")
         for line in so.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
+        if name in MMA_LIBRARIES:
+            sass = subprocess.run(
+                [_build.cuda_tool("cuobjdump"), "--dump-sass", str(so)],
+                capture_output=True, text=True, check=True,
+            ).stdout
+            counts: dict[str, int] = {}
+            for op in MMA_OPCODES.findall(sass):
+                counts[op] = counts.get(op, 0) + 1
+            log(f"  SASS tensor-core MMA instructions: {counts or 'none'}")
+            if not counts:
+                raise AssertionError(f"phase 0: {name} holds no tensor-core MMA instruction")
         _build.load_library(name)
 
 
@@ -232,10 +267,15 @@ def bound(n_bytes: int, ops: int, ops_per_s: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def popcount_bound(frame_pairs: int, *tensors) -> tuple[float, str]:
-    """bound() of a popcount kernel's call: its inputs and output read or
-    written once, each real frame pair a 256-wide int8 dot."""
-    return bound(tensor_bytes(*tensors), OPS_PER_FRAME_PAIR * frame_pairs, INT8_OPS_PER_S)
+def hamming_bound(frame_pairs: int, *tensors) -> tuple[float, str, float]:
+    """bound() of a Hamming-threshold kernel's call, its inputs and output
+    read or written once and each real frame pair one 256-deep binary
+    product (popc(a & b), which with the frames' own popcounts gives the
+    distance) at the binary tensor-core rate; and, like for like with the
+    bounds before the binary form, the bound with each pair a 256-wide
+    int8 dot at the int8 rate (ms)."""
+    n_bytes, ops = tensor_bytes(*tensors), OPS_PER_FRAME_PAIR * frame_pairs
+    return (*bound(n_bytes, ops, B1_OPS_PER_S), bound(n_bytes, ops, INT8_OPS_PER_S)[0])
 
 
 def segment_frame_pairs(slot_a, slot_b, valid) -> int:
@@ -243,6 +283,29 @@ def segment_frame_pairs(slot_a, slot_b, valid) -> int:
     frame against every non-padding frame of the valid column steps."""
     live_b = (slot_b.view(valid.shape[0], -1) >= 0) & (valid[:, None] != 0)
     return int((slot_a >= 0).sum()) * int(live_b.sum())
+
+
+def int_mm_yardstick(rows, cols) -> tuple[float, int]:
+    """(ms, frame pairs) of torch._int_mm over every row against every
+    column, both [n, 256] ±1 int8 rows, in column chunks whose int32
+    output holds at most YARDSTICK_CHUNK_ENTRIES entries. It is the inner
+    product of the similarity kernels alone (no threshold, no reduction to
+    videos), a yardstick of the card's int8 GEMM, and the port never calls
+    it."""
+    import torch
+
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n))  # noqa: E731
+    m = rows.shape[0]
+    rows = pad(rows, max(24, -(-m // 8) * 8) - m)  # _int_mm: more than 16 rows, 8 | rows
+    chunk = max(8, YARDSTICK_CHUNK_ENTRIES // rows.shape[0] // 8 * 8)
+    parts = [cols[c0 : c0 + chunk] for c0 in range(0, cols.shape[0], chunk)]
+    parts = [pad(p, -p.shape[0] % 8).contiguous() for p in parts]
+
+    def run():
+        for p in parts:
+            torch._int_mm(rows, p.t())
+
+    return cuda_time_ms(run, 3, warmup=1), m * cols.shape[0]
 
 
 def phase1_kernel_vs_plain(blobs, dev):
@@ -292,11 +355,11 @@ def phase1_kernel_vs_plain(blobs, dev):
         ms = cuda_time_ms(lambda: seg.exists_mask_sweep(*args, tol), 20)
         plain_ms = cuda_time_ms(lambda: seg.exists_mask_sweep_plain(*args, tol), 3)
         pairs = segment_frame_pairs(slot_a, cols["slots"], valid)
-        bound_ms, bound_by = popcount_bound(pairs, *args, got)
+        bound_ms, bound_by, int8_ms = hamming_bound(pairs, *args, got)
         log(
             f"phase 1 tol {tol}: bit-equal ({n_bits} bits set); kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms per call; {pairs} real frame pairs, bound "
-            f"{bound_ms:.4f} ms ({bound_by})"
+            f"{bound_ms:.4f} ms ({bound_by}; {int8_ms:.4f} ms at the int8 rate)"
         )
         result[tol] = {
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
@@ -1003,19 +1066,42 @@ def phase6_similarity_vs_plain(blobs, dev):
         else:
             inputs, steps = sims_args, valid
         pairs = segment_frame_pairs(slot_a, slot_b, steps)
-        bound_ms, bound_by = popcount_bound(pairs, *inputs, got)
+        bound_ms, bound_by, int8_ms = hamming_bound(pairs, *inputs, got)
         del got, want
         ms = cuda_time_ms(kernel, 10)
         plain_ms = cuda_time_ms(plain, 1, warmup=0)  # the check above warmed it
         log(
             f"phase 6 {label}: bit-equal ({n_nonzero} nonzero outputs); kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms per call; {pairs} real frame pairs, bound "
-            f"{bound_ms:.4f} ms ({bound_by})"
+            f"{bound_ms:.4f} ms ({bound_by}; {int8_ms:.4f} ms at the int8 rate)"
         )
         result[label] = {
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+    # the work the tensor-core kernel computes: every 16-frame row fragment
+    # and 32-frame run of column frames holding a real frame, of every (row
+    # block, valid step) pair, against the slot pairs and the real pairs
+    steps = valid != 0
+    live_b = (slot_b.view(n_steps, -1) >= 0) & steps[:, None]
+    row_frags = int((slot_a.view(-1, 16) >= 0).any(1).sum())
+    col_runs = int(live_b.view(n_steps, -1, 32).any(2).sum())
+    slot_pairs = (slot_a.shape[0] // 2048) * int(steps.sum()) * 2048 * 2048
+    computed = row_frags * 16 * col_runs * 32
+    real = segment_frame_pairs(slot_a, slot_b, valid)
+    log(
+        f"phase 6 work: {slot_pairs} slot pairs, {computed} in live fragments, {real} real frame "
+        f"pairs: {slot_pairs / real:.4f} and {computed / real:.4f} per real pair"
+    )
+    yard_ms, yard_pairs = int_mm_yardstick(
+        ops_sim.unpack_pm1(a_words[slot_a >= 0]), ops_sim.unpack_pm1(b_words[live_b.flatten()])
+    )
+    log(
+        f"phase 6 yardstick, torch._int_mm over the same real frames as ±1 rows (the inner "
+        f"product alone, int32 out): {yard_ms:.4f} ms, {yard_pairs} pairs, "
+        f"{yard_pairs / (yard_ms / 1e3):.4g} pairs/s; the mask kernel "
+        f"{result['mask 75']['ms']:.4f} ms, {real / (result['mask 75']['ms'] / 1e3):.4g} real pairs/s"
+    )
     return result
 
 
@@ -1078,14 +1164,23 @@ def phase8_block_vs_plain(blobs, dev):
         pairs = int(rc.clamp(0, pa).to(torch.int64).sum()) * int(
             cc.clamp(0, pb).to(torch.int64).sum()
         )
-        bound_ms, bound_by = popcount_bound(pairs, rw, rc, cw, cc, got)
+        bound_ms, bound_by, int8_ms = hamming_bound(pairs, rw, rc, cw, cc, got)
         del got, want
         ms = cuda_time_ms(lambda: sb.similarity_block(*args), 10)
         plain_ms = cuda_time_ms(lambda: sb.similarity_block_plain(*args), 1, warmup=0)
+        real_a = torch.arange(pa, device=dev)[None, :] < rc[:, None]
+        real_b = torch.arange(pb, device=dev)[None, :] < cc[:, None]
+        yard_ms, _ = int_mm_yardstick(
+            ops_sim.unpack_pm1(rw[real_a]), ops_sim.unpack_pm1(cw[real_b])
+        )
         log(
             f"phase 8 {label}: bit-equal ({n_nonzero} nonzero, {n_100} at 100); kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms per call; {pairs} real frame pairs, "
-            f"{pairs / (ms / 1e3):.4g} per s, bound {bound_ms:.4f} ms ({bound_by})"
+            f"{pairs / (ms / 1e3):.4g} per s, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{int8_ms:.4f} ms at the int8 rate); real frames "
+            f"{float(real_b.float().mean()):.4f} of the column pads; "
+            f"yardstick torch._int_mm over the same real frames {yard_ms:.4f} ms, "
+            f"{pairs / (yard_ms / 1e3):.4g} pairs/s"
         )
         result[label] = {
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,

@@ -22,42 +22,69 @@
 // fa, fb are the per-slot frame counts; column index col = j*256 + s*64 + cs
 // for chunk s of column step j; steps with valid[j] == 0 are all zeros.
 //
-// The TPU kernel expands frames to ±1 int8 rows and runs five MXU products
-// per chunk (the frame dot and four one-hot slot reductions). This Hopper
-// form keeps the shape of the existence sweep (exists_mask_sweep.cu): the
-// bit-packed frames are read directly, a distance is __popc of the XOR of
-// the 8 words, one block per (column step, row block) holds its 2048 row
-// frames in registers (8 per thread) and walks the step's four 512-frame
-// column chunks through shared memory. Padding is excluded BY SLOT ID (-1,
-// and ids outside a block's slot range): an all-zero packed row is a valid
-// hash. The two directional counts come without double counting from two
-// masks of "which slots did this frame match":
+// Design: the frame distances run on the tensor cores (hamming_mma.cuh:
+// two binary products mma.sync.m16n8k256.b1.and.popc give popc(a ^ b) for
+// 16 x 8 whole hashes). One block of 16 warps per (column step j, row
+// block i) holds the block's 2048 row frames in registers: each warp eight
+// fragments of 16 frames, as bits and complements (64 registers a
+// thread). It walks the step's four 512-frame column chunks, each staged
+// once in shared memory as words and complements (33 KB), and multiplies
+// every 8-frame column fragment with its row fragments. Padding is
+// excluded BY SLOT ID (-1, and ids outside a block's slot range): such a
+// frame's words and complement are all ones, so its "distance" to any
+// frame is at least 256 and never within tol; an all-zero packed frame is
+// a valid hash and stays one. The epilogue of a product is the OR of its
+// accumulators' sign bits (d = distance - tol - 1) and, every four column
+// fragments, one __any_sync. Only a warp holding a match takes the slow
+// path, which computes the four fragments again and records "which slots
+// did this frame match":
 //
-//   - each row frame keeps a 64-bit register mask of the column slots of
-//     the chunk it matched (ma: one count per row frame and column slot,
-//     however many of the slot's frames it matched);
-//   - each column frame has a 256-bit row-slot mask in shared memory, set
-//     with atomicOr (mb, likewise).
+//   - each row frame has a 64-bit mask of the chunk's column slots it
+//     matched, in shared memory (ma: one count per row frame and column
+//     slot, however many of the slot's frames it matched);
+//   - each column frame has a 256-bit row-slot mask (mb, likewise);
 //
-// After the chunk the block adds the set bits into one [256 x 64] u32
-// counter tile in shared memory with shared atomicAdd, ma in the low half
-// and mb in the high half (ma <= 2048, mb <= 512: each fits 16 bits), and
-// the epilogue reads each counter once, computes the integer similarity,
-// writes it and re-zeroes the counter. Matches are rare: outside the
-// self-diagonal, tolerance 31 lies about twelve standard deviations below
-// the mean distance of unrelated hashes, so a chunk whose block saw no
-// match at all (__syncthreads_or) skips the counting and writes zeros.
+// both set with shared atomicOr. After a chunk with a match the block
+// adds the set bits into one [256 x 64] u32 counter tile with shared
+// atomicAdd, ma in the low half and mb in the high half (ma <= 2048,
+// mb <= 512), and the epilogue reads each counter once, computes the
+// integer similarity and writes it. A chunk without any match writes zeros.
 //
-// What bounds it on the H100: integer issue, as for the sweep. Each frame
-// pair costs 8 XOR, 8 POPC and 7 adds; POPC issues at 16 per SM per clock,
-// so about 264 frame pairs per clock across the 132 SMs. Shared memory is
-// 101,632 bytes per block (opt-in dynamic shared memory): two blocks fit an
-// SM, registers allow one. Making it fast (b1/int8 tensor-core MMA with
-// wgmma, TMA, a persistent grid) is later work; the results stay the same.
+// Why binary and not int8: mma_rates.py measured on the H100
+// 2.0e13 hash pairs/s for the b1 product (1.0e13 for the two-product
+// distance) against 3.8e12 for int8 wgmma on ±1 frames, which also needs
+// each frame expanded to 256 bytes in shared memory; an int8 wgmma form of
+// this kernel was built and measured first (PERF.md) and was slower.
+//
+// Where the trouble is, and what the design does about it:
+//   - Shared memory: the chunk stays 32 bytes a frame (and 32 for its
+//     complement), no ±1 expansion; 143,120 bytes a block with the
+//     counter tile (64 KB) and the masks. Columns stay bit-packed in device
+//     memory: no expanded copy of the corpus exists anywhere.
+//   - Registers: 512 threads at one block per SM leave 128 a thread; the
+//     row fragments take 64 of them.
+//   - Layouts: the m16n8k256 fragments take a frame's packed words as
+//     they are (hamming_mma.cuh); columns are staged word-major with a
+//     stride of 520 words, so a fragment's 32 loads hit 32 banks.
+//   - The epilogue's budget: at the b1 rate an SM does about 40 hash pairs
+//     per clock and its integer units about 64 simple operations, so the
+//     no-match path costs half an OR per pair and a vote per 4,096 pairs.
+//   - Dense tiles: every video matches itself on the unpruned route, so
+//     the self-diagonal's fragments take the slow path (one compare per
+//     accumulator and an atomicOr per matching pair); its cost is in the
+//     measured times (chip_smoke phase 6 plants both diagonals).
+//   - Padding waste: a 32-frame run of column padding (four fragments) is
+//     skipped; so is a row fragment of 16 padding frames; padding inside a
+//     live fragment is computed and never matches.
+//   - Bound: real frame pairs x 512 int8 operations at 1,979 TOP/s, the
+//     definition the popcount kernel it replaces was held to; the binary
+//     products can run below it.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hamming_mma.cuh"
 
 namespace {
 
@@ -69,34 +96,42 @@ constexpr int kChunkSlots = 64;
 constexpr int kSplit = 4;
 constexpr int kStepFrames = kSplit * kChunkFrames;  // 2048
 constexpr int kStepSlots = kSplit * kChunkSlots;    // 256
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = kRowFrames / kThreads;  // 8
-constexpr int kTile = kRowSlots * kChunkSlots;         // counters per chunk
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;                   // 512: one per chunk frame
+constexpr int kFragsPerWarp = kRowFrames / 16 / kWarps;  // 8 row fragments of 16 frames
+constexpr int kGroups = kChunkFrames / 8;                // column fragments of 8 frames
+constexpr int kStride = kChunkFrames + 8;                // staged words, word-major
+constexpr int kTile = kRowSlots * kChunkSlots;           // counters per chunk
+static_assert(kThreads == kChunkFrames && kGroups == 64, "one thread per chunk frame");
 
 enum Mode { kSims = 0, kMask = 1, kCounts = 2 };
 
-// dynamic shared memory, in this order: one column chunk's frames, the
-// counter tile, the column frames' row-slot masks, the chunk's slot ids,
-// the row block's and the chunk's per-slot frame counts (clamped to >= 1)
-constexpr size_t kSmemBytes = sizeof(uint4) * 2 * kChunkFrames +
-                              sizeof(unsigned) * kTile +
-                              sizeof(unsigned) * kMaskWords * kChunkFrames +
-                              sizeof(int) * (kChunkFrames + kRowSlots + kChunkSlots);
+// dynamic shared memory, in this order: the chunk's words and their
+// complements, the counter tile, the row frames' column-slot masks, the
+// column frames' row-slot masks, the row and column slot ids, the
+// per-slot frame counts (clamped to >= 1), the live column fragments and
+// the "any match in the chunk" flag
+constexpr int kOffNb = 4 * hmma::kWords * kStride;
+constexpr int kOffCnt = 2 * kOffNb;
+constexpr int kOffAmask = kOffCnt + 4 * kTile;
+constexpr int kOffRowmask = kOffAmask + 8 * kRowFrames;
+constexpr int kOffRslot = kOffRowmask + 4 * kMaskWords * kChunkFrames;
+constexpr int kOffCslot = kOffRslot + 4 * kRowFrames;
+constexpr int kOffFa = kOffCslot + 4 * kChunkFrames;
+constexpr int kOffFb = kOffFa + 4 * kRowSlots;
+constexpr int kOffFlags = kOffFb + 4 * kChunkSlots;
+constexpr int kSmemBytes = kOffFlags + 16;
+static_assert(kOffAmask % 8 == 0 && kOffFlags % 8 == 0, "64-bit words stay aligned");
 
-__device__ __forceinline__ int hamming(const uint4& a0, const uint4& a1,
-                                       const uint4& b0, const uint4& b1) {
-  return __popc(a0.x ^ b0.x) + __popc(a0.y ^ b0.y) + __popc(a0.z ^ b0.z) +
-         __popc(a0.w ^ b0.w) + __popc(a1.x ^ b1.x) + __popc(a1.y ^ b1.y) +
-         __popc(a1.z ^ b1.z) + __popc(a1.w ^ b1.w);
-}
+__device__ __forceinline__ int in_range(int v, int n) { return (v >= 0 && v < n) ? v : -1; }
 
 // One block per (column step j = blockIdx.x, row block i = blockIdx.y).
 template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-similarity_segments_kernel(const uint4* __restrict__ a,
+__global__ void __launch_bounds__(kThreads, 1)
+similarity_segments_kernel(const unsigned* __restrict__ a,
                            const int* __restrict__ slot_a,
                            const int* __restrict__ counts_a,
-                           const uint4* __restrict__ b,
+                           const unsigned* __restrict__ b,
                            const int* __restrict__ slot_b,
                            const int* __restrict__ counts_b,
                            const int* __restrict__ valid,
@@ -117,67 +152,87 @@ similarity_segments_kernel(const uint4* __restrict__ a,
     return;
   }
 
-  extern __shared__ uint4 smem[];
-  uint4* s_frames = smem;
-  unsigned* s_cnt = reinterpret_cast<unsigned*>(smem + 2 * kChunkFrames);
-  unsigned* s_rowmask = s_cnt + kTile;  // [c * 8 + w], bit b = row slot 32w+b
-  int* s_slots = reinterpret_cast<int*>(s_rowmask + kMaskWords * kChunkFrames);
-  int* s_fa = s_slots + kChunkFrames;
-  int* s_fb = s_fa + kRowSlots;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* s_b = reinterpret_cast<unsigned*>(smem);
+  unsigned* s_nb = reinterpret_cast<unsigned*>(smem + kOffNb);
+  unsigned* s_cnt = reinterpret_cast<unsigned*>(smem + kOffCnt);
+  unsigned long long* s_amask = reinterpret_cast<unsigned long long*>(smem + kOffAmask);
+  unsigned* s_rowmask = reinterpret_cast<unsigned*>(smem + kOffRowmask);  // [c*8 + w]
+  int* s_rslot = reinterpret_cast<int*>(smem + kOffRslot);
+  int* s_cslot = reinterpret_cast<int*>(smem + kOffCslot);
+  int* s_fa = reinterpret_cast<int*>(smem + kOffFa);
+  int* s_fb = reinterpret_cast<int*>(smem + kOffFb);
+  unsigned long long* s_glive = reinterpret_cast<unsigned long long*>(smem + kOffFlags);
+  int* s_any = reinterpret_cast<int*>(smem + kOffFlags + 8);
 
-  for (int k = t; k < kTile; k += kThreads) s_cnt[k] = 0u;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane / 4;
+  const int q = lane % 4;  // this thread's place in its fragments
+  const int bias = -(tol + 1);  // distance - bias - 1 < 0 <=> distance <= tol
+  const long long row0 = (long long)i * kRowFrames;
+
+  if (kBothWays && t < kRowSlots) s_fa[t] = max(counts_a[i * kRowSlots + t], 1);
   for (int k = t; k < kMaskWords * kChunkFrames; k += kThreads) s_rowmask[k] = 0u;
-  if (kBothWays) s_fa[t] = max(counts_a[i * kRowSlots + t], 1);
-
-  // this thread's row frames t, t+256, ..., t+7*256 of row block i
-  uint4 ra[kRowsPerThread][2];
-  int rs[kRowsPerThread];
+  for (int k = t; k < kRowFrames; k += kThreads) {
+    s_rslot[k] = in_range(slot_a[row0 + k], kRowSlots);
+    s_amask[k] = 0ull;
+  }
+  // this warp's row fragments r: frames 16 * (warp + 16 r) + g (+ 8)
+  hmma::Rows rows[kFragsPerWarp];
+  unsigned live = 0u;  // bit r: fragment r holds a real frame (uniform in the warp)
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const long long f = (long long)i * kRowFrames + r * kThreads + t;
-    ra[r][0] = a[2 * f];
-    ra[r][1] = a[2 * f + 1];
-    const int v = slot_a[f];
-    rs[r] = (v >= 0 && v < kRowSlots) ? v : -1;
+  for (int r = 0; r < kFragsPerWarp; ++r) {
+    const int lo = 16 * (warp + kWarps * r) + g;
+    const bool live_lo = in_range(slot_a[row0 + lo], kRowSlots) >= 0;
+    const bool live_hi = in_range(slot_a[row0 + lo + 8], kRowSlots) >= 0;
+    hmma::load_rows(rows[r], live_lo ? a + 8 * (row0 + lo) : nullptr,
+                    live_hi ? a + 8 * (row0 + lo + 8) : nullptr, q);
+    if (__any_sync(0xffffffffu, live_lo || live_hi)) live |= 1u << r;
   }
 
   for (int s = 0; s < kSplit; ++s) {
     __syncthreads();  // the previous chunk is consumed
     const long long base = (long long)j * kStepFrames + s * kChunkFrames;
-    for (int k = t; k < 2 * kChunkFrames; k += kThreads) s_frames[k] = b[2 * base + k];
-    for (int k = t; k < kChunkFrames; k += kThreads) {
-      const int v = slot_b[base + k];
-      s_slots[k] = (v >= 0 && v < kChunkSlots) ? v : -1;
+    if (t == 0) {
+      *s_any = 0;
+      *s_glive = 0ull;
     }
     if (kBothWays && t < kChunkSlots) {
       s_fb[t] = max(counts_b[(long long)j * kStepSlots + s * kChunkSlots + t], 1);
     }
     __syncthreads();
-
-    unsigned long long amask[kRowsPerThread];
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) amask[r] = 0ull;
-    for (int c = 0; c < kChunkFrames; ++c) {
-      const int cs = s_slots[c];  // uniform across the block: no divergence
-      if (cs < 0) continue;
-      const uint4 b0 = s_frames[2 * c];
-      const uint4 b1 = s_frames[2 * c + 1];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        if (hamming(ra[r][0], ra[r][1], b0, b1) <= tol && rs[r] >= 0) {
-          amask[r] |= 1ull << cs;
-          if (kBothWays) {
-            atomicOr(&s_rowmask[c * kMaskWords + (rs[r] >> 5)], 1u << (rs[r] & 31));
-          }
-        }
+    {
+      const int cs = in_range(slot_b[base + t], kChunkSlots);  // chunk frame t
+      s_cslot[t] = cs;
+      const unsigned m = __ballot_sync(0xffffffffu, cs >= 0);  // this warp's 4 fragments
+      if (lane == 0 && m) {
+        unsigned long long bits = 0ull;
+        for (int k = 0; k < 4; ++k) bits |= (unsigned long long)(((m >> (8 * k)) & 0xffu) != 0u) << (4 * warp + k);
+        atomicOr(s_glive, bits);
       }
     }
+    for (int k = t; k < hmma::kWords * kChunkFrames; k += kThreads) {
+      const int f = k % kChunkFrames;
+      const bool real = in_range(slot_b[base + f], kChunkSlots) >= 0;
+      hmma::stage_col(s_b, s_nb, kStride, f, k / kChunkFrames, real ? b + 8 * (base + f) : nullptr);
+    }
+    __syncthreads();
 
-    bool matched = false;
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) matched |= amask[r] != 0ull;
+    hmma::sweep(rows, live, s_b, s_nb, kStride, *s_glive, kGroups, bias, lane,
+                [&](int r, int rf, int col) {
+                  const int row = 16 * (warp + kWarps * r) + rf;
+                  atomicOr(&s_amask[row], 1ull << s_cslot[col]);
+                  if (kBothWays) {
+                    const int rs = s_rslot[row];
+                    atomicOr(&s_rowmask[col * kMaskWords + (rs >> 5)], 1u << (rs & 31));
+                  }
+                  *s_any = 1;
+                });
+    __syncthreads();
+
     int* out_chunk = out_blk + s * kChunkSlots;
-    if (!__syncthreads_or(matched)) {
+    if (!*s_any) {
       // no frame pair of the chunk matched: every count is 0, and so is
       // every output (min_sim >= 1 in the mask mode); nothing was set
       for (int k = t; k < kOutRows * kChunkSlots; k += kThreads) {
@@ -186,15 +241,19 @@ similarity_segments_kernel(const uint4* __restrict__ a,
       continue;
     }
 
+    for (int k = t; k < kTile; k += kThreads) s_cnt[k] = 0u;
+    __syncthreads();
     // ma: a row frame adds 1 at (its slot, cs) for each column slot cs it
-    // matched
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      unsigned long long m = amask[r];
+    // matched; its mask is cleared for the next chunk
+    for (int r = t; r < kRowFrames; r += kThreads) {
+      unsigned long long m = s_amask[r];
+      if (m == 0ull) continue;
+      s_amask[r] = 0ull;
+      const int rs = s_rslot[r];  // >= 0: only real frames match
       while (m) {
         const int cs = __ffsll((long long)m) - 1;
         m &= m - 1;
-        atomicAdd(&s_cnt[rs[r] * kChunkSlots + cs], 1u);
+        atomicAdd(&s_cnt[rs * kChunkSlots + cs], 1u);
       }
     }
     // mb: a column frame adds 1 << 16 at (rs, its slot) for each row slot
@@ -204,19 +263,18 @@ similarity_segments_kernel(const uint4* __restrict__ a,
         unsigned m = s_rowmask[k];
         if (m == 0u) continue;
         s_rowmask[k] = 0u;
-        const int cs = s_slots[k / kMaskWords];  // >= 0: only real frames match
-        const int row0 = (k % kMaskWords) * 32;
+        const int cs = s_cslot[k / kMaskWords];
+        const int row0w = (k % kMaskWords) * 32;
         while (m) {
           const int bit = __ffs((int)m) - 1;
           m &= m - 1;
-          atomicAdd(&s_cnt[(row0 + bit) * kChunkSlots + cs], 1u << 16);
+          atomicAdd(&s_cnt[(row0w + bit) * kChunkSlots + cs], 1u << 16);
         }
       }
     }
     __syncthreads();
 
-    // epilogue: each counter is read, turned into the output and re-zeroed
-    // by one thread
+    // epilogue: each counter is read and turned into the output by one thread
     if (MODE == kMask) {
       for (int k = t; k < kMaskWords * kChunkSlots; k += kThreads) {
         const int w = k / kChunkSlots;
@@ -226,7 +284,6 @@ similarity_segments_kernel(const uint4* __restrict__ a,
           const int row = w * 32 + bit;
           const unsigned v = s_cnt[row * kChunkSlots + cs];
           if (v == 0u) continue;  // sim 0 < min_sim
-          s_cnt[row * kChunkSlots + cs] = 0u;
           const int sim = min(100 * (int)(v & 0xffffu) / s_fa[row],
                               100 * (int)(v >> 16) / s_fb[cs]);
           if (sim >= min_sim) word |= 1u << bit;
@@ -240,7 +297,6 @@ similarity_segments_kernel(const uint4* __restrict__ a,
         const unsigned v = s_cnt[k];
         int val = 0;
         if (v != 0u) {
-          s_cnt[k] = 0u;
           if (MODE == kCounts) {
             val = (int)(v & 0xffffu);
           } else {
@@ -261,12 +317,12 @@ int launch(const void* a, const void* slot_a, const void* counts_a,
            int tol, int min_sim, cudaStream_t stream) {
   auto kernel = similarity_segments_kernel<MODE>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)n_steps, (unsigned)n_row_blocks);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      (const uint4*)a, (const int*)slot_a, (const int*)counts_a,
-      (const uint4*)b, (const int*)slot_b, (const int*)counts_b,
+      (const unsigned*)a, (const int*)slot_a, (const int*)counts_a,
+      (const unsigned*)b, (const int*)slot_b, (const int*)counts_b,
       (const int*)valid, (int*)out, n_steps, tol, min_sim);
   return (int)cudaGetLastError();
 }

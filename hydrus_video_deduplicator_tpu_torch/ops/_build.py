@@ -2,9 +2,11 @@
 
 Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a into a shared
 library of its own with a plain C interface, which ``ctypes`` loads. Each
-library lands in ``csrc/build/`` under a name keyed on a hash of its source
-and its compiler flags, so an edited source builds anew and a checkout
-builds on its first call. Nothing here runs at import time.
+library lands in ``csrc/build/`` under a name keyed on a hash of its source,
+of every ``csrc`` header it includes (``#include "..."``, followed
+recursively) and of its compiler flags, so an edited source or header
+builds anew and a checkout builds on its first call. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,15 +55,50 @@ KERNELS: dict[str, tuple[list[str], dict[str, list]]] = {
 }
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def cuda_tool(name: str) -> str:
+    """Path of the CUDA toolkit's program ``name`` (nvcc, cuobjdump):
+    on PATH, else under $CUDA_HOME, $CUDA_PATH or /usr/local/cuda."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = Path(home) / "bin" / "nvcc"
+    candidate = Path(home) / "bin" / name
     if candidate.is_file():
         return str(candidate)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build csrc/*.cu")
+    raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to build csrc/*.cu")
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes, found
+    beside the including file and followed recursively, each once."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found or not path.is_file():
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
+def nvcc_flags(name: str) -> list[str]:
+    """The nvcc flags of kernel library ``name``: the command's and the
+    digest's, so the two cannot drift apart."""
+    return [*NVCC_FLAGS, *KERNELS[name][0]]
+
+
+def library_name(name: str) -> str:
+    """File name of kernel library ``name``: keyed on its sources (the .cu
+    and its headers) and its nvcc flags."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(nvcc_flags(name)).encode())
+    return f"libhvd_{name}_{digest.hexdigest()[:16]}.so"
 
 
 def library_path(name: str) -> Path:
@@ -71,17 +109,13 @@ def library_path(name: str) -> Path:
     compiler's report (registers, shared memory, spills from -Xptxas=-v)
     is kept beside the library as ``<library>.log``.
     """
-    extra, _ = KERNELS[name]
     source = CSRC / f"{name}.cu"
-    flags = [*NVCC_FLAGS, *extra]
-    digest = hashlib.sha256(source.read_bytes())
-    digest.update(" ".join(flags).encode())
-    so = BUILD_DIR / f"libhvd_{name}_{digest.hexdigest()[:16]}.so"
+    so = BUILD_DIR / library_name(name)
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
+    cmd = [cuda_tool("nvcc"), *nvcc_flags(name), "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -1,6 +1,7 @@
-"""The kernel build: one library per ``csrc/*.cu``, keyed on its source and
-flags, built by ``nvcc`` (a stand-in script here: this machine has no CUDA
-toolkit) and moved into place atomically."""
+"""The kernel build: one library per ``csrc/*.cu``, keyed on its source,
+the ``csrc`` headers it includes and its flags, built by ``nvcc`` (a
+stand-in script here: this machine has no CUDA toolkit) and moved into
+place atomically."""
 
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ def fake_toolkit(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}")
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for name in _build.KERNELS:
-        (csrc / f"{name}.cu").write_bytes((_build.CSRC / f"{name}.cu").read_bytes())
+    for path in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
+        (csrc / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
     return csrc
@@ -69,3 +70,41 @@ def test_a_failed_build_raises_with_the_compiler_output(fake_toolkit):
     with pytest.raises(RuntimeError, match="no such intrinsic"):
         _build.library_path("pdq_filter")
     assert not list((fake_toolkit / "build").glob("*"))
+
+
+#: the kernels whose frame pairs run on the shared tensor-core header
+MMA_KERNELS = ("similarity_block", "similarity_segments")
+
+
+def test_sources_follow_quoted_includes():
+    for name in _build.KERNELS:
+        names = [p.name for p in _build.sources(name)]
+        assert names[0] == f"{name}.cu"
+        assert ("hamming_mma.cuh" in names) == (name in MMA_KERNELS)
+
+
+def test_an_edited_header_renames_the_libraries_that_include_it(fake_toolkit):
+    """No nvcc needed: the library's name is the digest of its sources."""
+    before = {name: _build.library_name(name) for name in _build.KERNELS}
+    header = fake_toolkit / "hamming_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_name(name) for name in _build.KERNELS}
+    for name in _build.KERNELS:
+        assert (after[name] != before[name]) == (name in MMA_KERNELS), name
+    # a header included from a header counts too
+    (fake_toolkit / "inner.cuh").write_text("// v1\n")
+    header.write_text(header.read_text() + '#include "inner.cuh"\n')
+    nested = _build.library_name("similarity_block")
+    (fake_toolkit / "inner.cuh").write_text("// v2\n")
+    assert _build.library_name("similarity_block") != nested
+
+
+def test_a_new_flag_renames_the_library_and_reaches_the_command(fake_toolkit, monkeypatch):
+    before = _build.library_name("similarity_block")
+    extra, functions = _build.KERNELS["similarity_block"]
+    monkeypatch.setitem(
+        _build.KERNELS, "similarity_block", ([*extra, "-I/usr/local/cutlass/include"], functions)
+    )
+    assert _build.library_name("similarity_block") != before
+    cmd = _build.library_path("similarity_block").read_text().split()
+    assert cmd[: len(_build.nvcc_flags("similarity_block"))] == _build.nvcc_flags("similarity_block")

@@ -288,3 +288,171 @@ def test_kernel_matches_plain_on_cuda(inputs, cuda_device, mode, monkeypatch):
     torch.cuda.synchronize()
     assert seg.LAUNCHES[wrapper] == before + 1
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The ±1 identity the tensor-core kernels rest on, and the cases a tiled
+# product can get wrong
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def frame_distances(inputs):
+    """Hamming distances [row frames, column frames] of the packed inputs by
+    popcount of the XOR, the ±1 dots of unpack_blocks_pm1 (zero rows for
+    padding) and the frames' liveness."""
+    rp, ri, _, cp, ci, _, _ = inputs["np"]
+    dist = np.empty((rp.shape[0], cp.shape[0]), np.int32)
+    for r0 in range(0, rp.shape[0], 256):
+        dist[r0 : r0 + 256] = np.bitwise_count(rp[r0 : r0 + 256, None, :] ^ cp[None]).sum(-1)
+    a, sa, _, b, sb, _, _ = _torch_args(inputs, CPU)
+    dot = torch.matmul(
+        seg.unpack_blocks_pm1(a, sa, torch.float32), seg.unpack_blocks_pm1(b, sb, torch.float32).T
+    )
+    return dist, dot.to(torch.int32).numpy(), ri >= 0, ci >= 0
+
+
+@pytest.mark.parametrize("tol", [0, 31, 79, 127])
+def test_pm1_dot_threshold_is_the_popcount_match(frame_distances, tol):
+    """dot >= 256 - 2*tol of the ±1 rows, padding as zero rows, matches
+    exactly the real frame pairs at popcount(xor) <= tol; real all-zero
+    frames (all -1, not zero) match like any other frame."""
+    dist, dot, live_a, live_b = frame_distances
+    want = (dist <= tol) & live_a[:, None] & live_b[None, :]
+    assert np.array_equal(dot >= ops_sim.BITS - 2 * tol, want)
+    assert want.any() and (want != (dist <= tol)).any()  # padding would match at distance 0
+
+
+@pytest.fixture(scope="module")
+def binary_distances(inputs):
+    """The kernels' distance (csrc/hamming_mma.cuh), computed with numpy on
+    the packed inputs: popc(a & ~b) + popc(~a & b), where a padding frame
+    (slot id -1) has all ones in its words and in their complement."""
+    rp, ri, _, cp, ci, _, _ = inputs["np"]
+    ones = np.uint32(0xFFFFFFFF)
+
+    def planes(x, slots):
+        live = (slots >= 0)[:, None]
+        return np.where(live, x, ones), np.where(live, ~x, ones)
+
+    (a, na), (b, nb) = planes(rp, ri), planes(cp, ci)
+    out = np.empty((rp.shape[0], cp.shape[0]), np.int32)
+    for r0 in range(0, rp.shape[0], 256):
+        rs = slice(r0, r0 + 256)
+        out[rs] = np.bitwise_count(a[rs, None] & nb[None]).sum(-1, dtype=np.int32)
+        out[rs] += np.bitwise_count(na[rs, None] & b[None]).sum(-1, dtype=np.int32)
+    return out
+
+
+@pytest.mark.parametrize("tol", [0, 31, 79, 127])
+def test_the_kernels_binary_distance_is_the_popcount_match(frame_distances, binary_distances, tol):
+    """popc(a & ~b) + popc(~a & b) - (tol + 1) < 0, the sign the kernels
+    vote on, holds exactly for the real pairs within tol: a real pair's
+    value is its distance, and padding on either side is at least 256."""
+    dist, _, live_a, live_b = frame_distances
+    real = live_a[:, None] & live_b[None, :]
+    assert np.array_equal(binary_distances[real], dist[real])
+    assert binary_distances[~real].min() >= 256
+    assert np.array_equal(binary_distances - (tol + 1) < 0, (dist <= tol) & real)
+
+
+def _flipped(x: np.ndarray, d: int, last: bool) -> np.ndarray:
+    """x at distance d, the flipped bits in the first (words 0, 1, ...) or
+    the last (words 7, 6, ...) k-steps of the kernels' product."""
+    return _flip_bits(x, range(256 - d, 256) if last else range(d))
+
+
+def _edge_videos(rng):
+    """(row videos, column videos, expectations) of the edge cases, each
+    video [n, 32] uint8 frames; an expectation is (mode, row video, column
+    video, value) on the output."""
+    rnd = lambda n: rng.integers(0, 256, (n, 32), dtype=np.uint8)  # noqa: E731
+    x = rnd(1)
+    rows = [
+        x,  # 0: one frame at rows 0, in row tile 0
+        rnd(62),  # 1: rows 1..62
+        rnd(60),  # 2: rows 63..122, straddling row tile 0 and 1
+        np.zeros((1, 32), np.uint8),  # 3: a real all-zero frame, row 123
+    ]
+    rows.append(rnd(128 - 124))  # 4: rows 124..127, its last frame the last of row tile 1
+    cols, want = [], []
+    for last in (False, True):  # distance tol and tol + 1 in the first and the last k-step
+        for d, at31, at79 in ((31, 1, 1), (32, 0, 1), (79, 0, 1), (80, 0, 0)):
+            want += [("counts31", 0, len(cols), at31), ("counts79", 0, len(cols), at79)]
+            cols.append(_flipped(x[0], d, last)[None])
+    # a column video ending at column 127 (the first quarter's last) whose
+    # last frame equals row 127 (row tile 1's last): the only match of
+    # (row tile 1, quarter 0) is its last element
+    last = rnd(128 - len(cols))
+    last[-1] = rows[4][-1]
+    want.append(("counts31", 4, len(cols), 1))
+    cols.append(last)
+    # an all-zero real frame at column 128, beside quarters 2 and 3 all
+    # padding: it matches the real all-zero row frame, the padding does not
+    want += [("counts31", 3, len(cols), 1), ("sims", 3, len(cols), 100)]
+    cols.append(np.zeros((1, 32), np.uint8))
+    # the straddling video's frames on each side of row 64
+    want += [("counts31", 2, len(cols), 1), ("counts31", 2, len(cols) + 1, 10)]
+    cols += [rows[2][:1], rows[2][50:60]]
+    return rows, cols, want
+
+
+@pytest.fixture(scope="module")
+def edge_case():
+    """One row block of the edge rows against one column step whose first
+    chunk holds the edge columns (140 frames: quarters 2 and 3 padding) and
+    whose second chunk holds copies of every row video."""
+    rows, cols, want = _edge_videos(np.random.default_rng(5))
+    assert sum(len(c) for c in cols) == 140
+    ritems = [(k, v.tobytes()) for k, v in enumerate(rows)]
+    citems = [(k, v.tobytes()) for k, v in enumerate(cols)]
+    citems += [(len(cols) + k, v.tobytes()) for k, v in enumerate(rows)]
+    rblocks = seg.pack_blocks(ritems, seg.ROW_FRAMES, seg.ROW_SLOTS)
+    chunk0 = seg.pack_blocks(citems[: len(cols)], seg.CHUNK_FRAMES, seg.CHUNK_SLOTS)
+    chunk1 = seg.pack_blocks(citems[len(cols) :], seg.CHUNK_FRAMES, seg.CHUNK_SLOTS)
+    assert len(rblocks) == len(chunk0) == len(chunk1) == 1
+    rp, ri, rc, rmap = seg.stack_blocks(rblocks, 1, seg.ROW_FRAMES, seg.ROW_SLOTS)
+    cp, ci, cc, cmap = seg.stack_blocks(
+        chunk0 + chunk1, seg.N_SPLIT, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS
+    )
+    np_args = (rp, ri, rc, cp, ci, cc, np.ones(1, np.int32))
+    return {"np": np_args}, rmap, cmap, want
+
+
+def _edge_outputs(case, device):
+    inputs = case[0]
+    a, sa, ca, b, sb, cb, v = _torch_args(inputs, device)
+    return {
+        "sims": seg.similarity_segments(a, sa, ca, b, sb, cb, v),
+        "mask1": seg.similarity_segments(a, sa, ca, b, sb, cb, v, 1),
+        "counts31": seg.exists_counts(a, sa, b, sb, v, 31),
+        "counts79": seg.exists_counts(a, sa, b, sb, v, 79),
+    }
+
+
+def test_plain_versions_at_the_edge_cases(edge_case):
+    """The expectations of the edge cases hold on the plain versions, so
+    the card's comparison with them tests each case."""
+    _, rmap, cmap, want = edge_case
+    got = _edge_outputs(edge_case, CPU)
+    for mode, i, j, value in want:
+        assert got[mode][_slot(rmap, i), _slot(cmap, j)] == value, (mode, i, j)
+    n_cols = max(j for _, _, j, _ in want) + 1
+    for i in range(5):  # every row video matches its own copy in chunk 1
+        assert got["sims"][_slot(rmap, i), _slot(cmap, n_cols + i)] == 100
+    # the tile of row tile 1 and column quarter 0 holds one match, its last element
+    rp, ri, _, cp, ci, _, _ = edge_case[0]["np"]
+    dist = np.bitwise_count(rp[64:128, None, :] ^ cp[None, :128]).sum(-1)
+    hits = (dist <= 31) & (ri[64:128, None] >= 0) & (ci[None, :128] >= 0)
+    assert list(zip(*np.nonzero(hits))) == [(63, 127)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sims", "mask1", "counts31", "counts79"])
+def test_kernel_matches_plain_at_the_edge_cases_on_cuda(edge_case, cuda_device, mode):
+    """Distance tol and tol + 1 in the first and the last k-step, a row slot
+    straddling two 64-row tiles, a tile whose only match is its last
+    element, all-padding tiles beside a real all-zero frame."""
+    got = _edge_outputs(edge_case, cuda_device)[mode]
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _edge_outputs(edge_case, CPU)[mode])

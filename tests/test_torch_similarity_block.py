@@ -26,9 +26,9 @@ from hydrus_video_deduplicator_tpu.ops.similarity_pallas import (
 from hydrus_video_deduplicator_tpu.parallel.engine import _tile_similarity
 from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
 
-#: (pa, pb): both sides small, long rows against each column size the
-#: route sees, the long-column direction, and long against long
-PADS = [(4, 4), (1024, 1), (1024, 64), (64, 1024), (1024, 1024)]
+#: (pa, pb): both sides small, long rows against column pads 1, 8, 64, 512
+#: and 1024 (counts 1, pb - 1 and pb each), and the long-column direction
+PADS = [(4, 4), (1024, 1), (1024, 8), (1024, 64), (1024, 512), (64, 1024), (1024, 1024)]
 
 
 def _side(rng, pad: int) -> tuple[np.ndarray, np.ndarray]:
@@ -147,3 +147,68 @@ def test_kernel_equals_plain_on_cuda(cuda_device, pa, pb):
     assert sb.LAUNCHES["similarity_block"] == before + 1
     assert torch.equal(got, sb.similarity_block_plain(*args, pa, pb))
     np.testing.assert_array_equal(got.cpu().numpy(), _jax_reference(a, ca, b, cb, pa, pb)[0])
+
+
+def _flip(frame: np.ndarray, bits) -> np.ndarray:
+    """A [8] uint32 frame with the given bit positions flipped."""
+    out = frame.copy()
+    for p in bits:
+        out[p // 32] ^= np.uint32(1 << (p % 32))
+    return out
+
+
+def _edge_case(name: str):
+    """(a, ca, b, cb, pa, pb, {(row, column): similarity}) of the cases a
+    tiled product can get wrong."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    rnd = lambda *shape: rng.integers(0, 1 << 32, shape, dtype=np.uint32)  # noqa: E731
+    if name == "distance":  # tol and tol + 1, in the first and the last k-step
+        x = rnd(1, 1, 8)
+        b = np.stack([
+            _flip(x[0, 0], range(d) if first else range(256 - d, 256))[None]
+            for first in (True, False) for d in (31, 32)
+        ])
+        return x, np.ones(1, np.int32), b, np.ones(4, np.int32), 1, 1, {
+            (0, 0): 100, (0, 1): 0, (0, 2): 100, (0, 3): 0
+        }
+    if name == "last_element":
+        # row frame 63 (row tile 0's last) equals frame 7 of column videos
+        # 15 and 31: columns 127 and 255 of the B tile, the last of its two
+        # halves; each is its tile's only match
+        a, b = rnd(1, 64, 8), rnd(40, 8, 8)
+        b[15, 7] = b[31, 7] = a[0, 63]
+        return a, np.full(1, 64, np.int32), b, np.full(40, 8, np.int32), 64, 8, {
+            (0, 15): 1, (0, 31): 1, (0, 16): 0
+        }
+    if name == "padding_beside_zero":
+        # a real all-zero frame at the B tile's frame 99; frames 100..255 are
+        # padding, the half 128..255 all of it; the row's real all-zero frame
+        # matches the one, never the padding
+        a, b = rnd(1, 16, 8), rnd(1, 256, 8)
+        a[0, 3] = 0
+        a[0, 10:] = 0
+        b[0, 99:] = 0
+        return a, np.full(1, 10, np.int32), b, np.full(1, 100, np.int32), 16, 256, {(0, 0): 1}
+    raise KeyError(name)
+
+
+EDGE_CASES = ["distance", "last_element", "padding_beside_zero"]
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_plain_at_the_edge_cases(name):
+    a, ca, b, cb, pa, pb, want = _edge_case(name)
+    got = sb.similarity_block_plain(*_torch_args(a, ca, b, cb, "cpu"), pa, pb).numpy()
+    np.testing.assert_array_equal(got, _jax_reference(a, ca, b, cb, pa, pb)[0])
+    assert {k: int(got[k]) for k in want} == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_kernel_equals_plain_at_the_edge_cases_on_cuda(cuda_device, name):
+    a, ca, b, cb, pa, pb, want = _edge_case(name)
+    args = _torch_args(a, ca, b, cb, cuda_device)
+    got = sb.similarity_block(*args, pa, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sb.similarity_block_plain(*args, pa, pb))
+    assert {k: int(got[k]) for k in want} == want
