@@ -8,15 +8,17 @@ Phases (each raises on failure; nothing is caught):
    versions, and the nvcc builds of csrc/exists_mask_sweep.cu,
    csrc/pdq_filter.cu, csrc/similarity_segments.cu and
    csrc/similarity_block.cu, started together (time and the compiler's
-   register/shared-memory report of each); it reads the SASS of the last
-   two with cuobjdump and fails unless both hold tensor-core MMA
-   instructions (their frame pairs run on binary mma.sync: BMMA),
-   printing the counts;
+   register/shared-memory report of each); it reads the SASS of the three
+   Hamming libraries (all but the PDQ filter) with cuobjdump and fails
+   unless each holds tensor-core MMA instructions (their frame pairs run
+   on binary mma.sync: BMMA), printing the counts;
 1. sweep kernel against its plain PyTorch version on the card, bit for
    bit, at the main path's shapes: one row tile of 2 row blocks of scene
    leaders against the whole column corpus of leaders of the seed-7 scene
    library, tolerances 79 and 31, all-zero padding frames, an all-zero real
-   frame and some invalid steps; both timed with CUDA events;
+   frame and some invalid steps; both timed with CUDA events; then the
+   work counts (slot pairs, pairs in live fragments, real pairs) and the
+   torch._int_mm yardstick over the same real leaders, as phase 6;
 2. stage 4 at real size through the orchestrator: the seed-7 mean-71 scene
    library of N videos (the port's scene_library.build_corpus, the model
    of artifacts/sweep_scenes.py, frames clipped at 512) queued into a
@@ -36,7 +38,10 @@ Phases (each raises on failure; nothing is caught):
    batch of 512 planar frames (noise, smooth gradients, constant, all-0,
    all-255 and frames decoded from tests/corpus/videos, from a numpy
    seed) bit for bit, the fused hash (kernel + PyTorch tail) against the
-   numpy oracle on 64 of them, both filters timed with CUDA events;
+   numpy oracle on 64 of them, both filters timed with CUDA events, and
+   the kernel's bytes per second beside the bound (the bytes the function
+   needs: the 447 frame rows a frame that its bands read, the reciprocals
+   and the output);
 5. stage 1 at real size through the orchestrator: 10,000 MJPG videos (5,000
    scenes x 2 versions, the second with +-6 noise; 16 s at 1 fps, so
    160,000 hashed frames; the corpus shape of artifacts/bench_e2e.py)
@@ -63,7 +68,8 @@ Phases (each raises on failure; nothing is caught):
    counterpart, the sweep with every step valid; each timed with CUDA
    events beside its plain version; then the work counts (slot pairs,
    pairs in the fragments the tensor-core kernel computes, real pairs) and a
-   yardstick, torch._int_mm over the same real frames as ±1 rows;
+   yardstick, torch._int_mm over the same real frames as ±1 rows, for the
+   mask at 75 and for the every-step sweep;
 7. the unpruned search at real size through the orchestrator: the phase-2
    library, a fresh database, stage 2, maintenance and
    deduplicate(skip_hashing=True) with search_prefilter="none": the marked
@@ -117,7 +123,10 @@ JAX package was imported.
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero and prints no result. ``python3 chip_smoke.py N`` sets the
 library size of phases 2, 7, 8 and the "auto" run of phase 9 (default
-100000).
+100000). Phase 2 alone at another size:
+
+    python3 -c "import sys, chip_smoke as c; \
+sys.exit(c.stage4_orchestrator(2, *c.build_library(1_000_000), {'exists_mask_sweep'}) is None)"
 """
 
 from __future__ import annotations
@@ -146,7 +155,7 @@ KERNELS = {  # wrapper name -> (kernel library, the TPU kernel it replaces)
 LIBRARIES = sorted({lib for lib, _ in KERNELS.values()})
 #: the libraries whose frame pairs run on the tensor cores, and the SASS
 #: opcodes of a tensor-core product
-MMA_LIBRARIES = ("similarity_block", "similarity_segments")
+MMA_LIBRARIES = ("exists_mask_sweep", "similarity_block", "similarity_segments")
 MMA_OPCODES = re.compile(r"\b(IGMMA|HGMMA|QGMMA|IMMA|HMMA|BMMA)\b")
 #: the int8 GEMM yardstick's output chunk (int32 entries)
 YARDSTICK_CHUNK_ENTRIES = 1 << 28
@@ -308,8 +317,42 @@ def int_mm_yardstick(rows, cols) -> tuple[float, int]:
     return cuda_time_ms(run, 3, warmup=1), m * cols.shape[0]
 
 
-def phase1_kernel_vs_plain(blobs, dev):
-    import numpy as np
+def report_work(phase: str, a_words, slot_a, b_words, slot_b, valid, kernel_ms: float) -> None:
+    """Prints the work of a sweep-shaped call (every 16-frame row fragment
+    and 32-frame run of column frames holding a real frame, of every (row
+    block, valid step) pair, against the slot pairs and the real pairs) and
+    the yardstick, torch._int_mm over the same real frames as ±1 rows."""
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity as ops_sim
+
+    n_steps = valid.shape[0]
+    steps = valid != 0
+    live_b = (slot_b.view(n_steps, -1) >= 0) & steps[:, None]
+    row_frags = int((slot_a.view(-1, 16) >= 0).any(1).sum())
+    col_runs = int(live_b.view(n_steps, -1, 32).any(2).sum())
+    slot_pairs = (slot_a.shape[0] // 2048) * int(steps.sum()) * 2048 * 2048
+    computed = row_frags * 16 * col_runs * 32
+    real = segment_frame_pairs(slot_a, slot_b, valid)
+    log(
+        f"phase {phase} work: {slot_pairs} slot pairs, {computed} in live fragments, {real} real "
+        f"frame pairs: {slot_pairs / real:.4f} and {computed / real:.4f} per real pair"
+    )
+    yard_ms, yard_pairs = int_mm_yardstick(
+        ops_sim.unpack_pm1(a_words[slot_a >= 0]), ops_sim.unpack_pm1(b_words[live_b.flatten()])
+    )
+    log(
+        f"phase {phase} yardstick, torch._int_mm over the same real frames as ±1 rows (the inner "
+        f"product alone, int32 out): {yard_ms:.4f} ms, {yard_pairs} pairs, "
+        f"{yard_pairs / (yard_ms / 1e3):.4g} pairs/s; the kernel {kernel_ms:.4f} ms, "
+        f"{real / (kernel_ms / 1e3):.4g} real pairs/s"
+    )
+
+
+def phase1_inputs(blobs, dev):
+    """The sweep's arguments at the main path's shapes (phase 1): one row
+    tile of 2 row blocks of scene leaders of the first 1,000 videos against
+    the whole column corpus of leaders, an all-zero real frame at each
+    side, padding, every seventh step invalid. Returns (a_words, slot_a,
+    b_words, slot_b, valid)."""
     import torch
 
     from hydrus_video_deduplicator_tpu_torch.ops import reps as reps_mod
@@ -342,7 +385,17 @@ def phase1_kernel_vs_plain(blobs, dev):
         f"{time.perf_counter() - t0:.1f} s to build"
     )
     assert n_steps >= 64 and n_pad > 0
-    args = (a_words, slot_a, b_words, cols["slots"], valid)
+    return a_words, slot_a, b_words, cols["slots"], valid
+
+
+def phase1_kernel_vs_plain(blobs, dev):
+    import numpy as np
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+
+    args = phase1_inputs(blobs, dev)
+    slot_a, slot_b, valid = args[1], args[3], args[4]
     result = {}
     for tol in (79, 31):
         got = seg.exists_mask_sweep(*args, tol)
@@ -354,7 +407,7 @@ def phase1_kernel_vs_plain(blobs, dev):
             raise AssertionError(f"kernel != plain at tol {tol}: max abs word error {err}")
         ms = cuda_time_ms(lambda: seg.exists_mask_sweep(*args, tol), 20)
         plain_ms = cuda_time_ms(lambda: seg.exists_mask_sweep_plain(*args, tol), 3)
-        pairs = segment_frame_pairs(slot_a, cols["slots"], valid)
+        pairs = segment_frame_pairs(slot_a, slot_b, valid)
         bound_ms, bound_by, int8_ms = hamming_bound(pairs, *args, got)
         log(
             f"phase 1 tol {tol}: bit-equal ({n_bits} bits set); kernel {ms:.4f} ms, "
@@ -365,6 +418,7 @@ def phase1_kernel_vs_plain(blobs, dev):
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+    report_work("1", *args, result[79]["ms"])
     return result
 
 
@@ -747,10 +801,20 @@ def phase4_pdq_kernel_vs_plain(dev):
     # on 7 staged rows, rep 1's cols pass on 4 rows, rep 2's cols pass on 1
     # row and its rows pass at the 64 sites
     band_ops = 5 * 7 * 512 + 4 * 7 * 512 + 4 * 4 * 512 + 4 * 512 + 4 * 64
-    bound_ms, bound_by = bound(
-        tensor_bytes(x, got), x.shape[0] * 64 * band_ops, FP32_OPS_PER_S
+    # the bytes the function needs: output row k reads frame rows 8k+2 ..
+    # 8k+8 below 512 (447 of a frame's 512 rows) of each plane, once; the
+    # reciprocals; the output
+    read_rows = sum(min(8 * k + 9, 512) - (8 * k + 2) for k in range(64))
+    n_bytes = x.shape[0] * 3 * read_rows * 512 * x.element_size() + tensor_bytes(
+        mpdq._constants(dev)[0], got
     )
-    log(f"phase 4: bound {bound_ms:.4f} ms ({bound_by})")
+    bound_ms, bound_by = bound(n_bytes, x.shape[0] * 64 * band_ops, FP32_OPS_PER_S)
+    rate = n_bytes / (ms / 1e3)
+    log(
+        f"phase 4: bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.3f}x; the kernel moves "
+        f"the {n_bytes} bytes the function needs ({read_rows} rows a frame plane) at "
+        f"{rate:.4g} B/s, {100 * rate / HBM_BYTES_PER_S:.1f} % of {HBM_BYTES_PER_S:.4g}"
+    )
     return {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -981,7 +1045,6 @@ def phase5_stage1():
 
 
 def phase6_similarity_vs_plain(blobs, dev):
-    import numpy as np
     import torch
 
     from hydrus_video_deduplicator_tpu_torch.ops import similarity as ops_sim
@@ -1079,28 +1142,10 @@ def phase6_similarity_vs_plain(blobs, dev):
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-    # the work the tensor-core kernel computes: every 16-frame row fragment
-    # and 32-frame run of column frames holding a real frame, of every (row
-    # block, valid step) pair, against the slot pairs and the real pairs
-    steps = valid != 0
-    live_b = (slot_b.view(n_steps, -1) >= 0) & steps[:, None]
-    row_frags = int((slot_a.view(-1, 16) >= 0).any(1).sum())
-    col_runs = int(live_b.view(n_steps, -1, 32).any(2).sum())
-    slot_pairs = (slot_a.shape[0] // 2048) * int(steps.sum()) * 2048 * 2048
-    computed = row_frags * 16 * col_runs * 32
-    real = segment_frame_pairs(slot_a, slot_b, valid)
-    log(
-        f"phase 6 work: {slot_pairs} slot pairs, {computed} in live fragments, {real} real frame "
-        f"pairs: {slot_pairs / real:.4f} and {computed / real:.4f} per real pair"
-    )
-    yard_ms, yard_pairs = int_mm_yardstick(
-        ops_sim.unpack_pm1(a_words[slot_a >= 0]), ops_sim.unpack_pm1(b_words[live_b.flatten()])
-    )
-    log(
-        f"phase 6 yardstick, torch._int_mm over the same real frames as ±1 rows (the inner "
-        f"product alone, int32 out): {yard_ms:.4f} ms, {yard_pairs} pairs, "
-        f"{yard_pairs / (yard_ms / 1e3):.4g} pairs/s; the mask kernel "
-        f"{result['mask 75']['ms']:.4f} ms, {real / (result['mask 75']['ms'] / 1e3):.4g} real pairs/s"
+    report_work("6 (mask 75)", a_words, slot_a, b_words, slot_b, valid, result["mask 75"]["ms"])
+    report_work(
+        "6 (every-step sweep 79)", a_words, slot_a, b_words, slot_b, every_step,
+        result["every-step sweep 79"]["ms"],
     )
     return result
 

@@ -1,5 +1,5 @@
 // Hamming distances of 256-bit frames on the tensor cores: the core shared
-// by similarity_segments.cu and similarity_block.cu.
+// by similarity_segments.cu, similarity_block.cu and exists_mask_sweep.cu.
 //
 // A warp's binary product mma.sync.m16n8k256.b1.and.popc gives, for 16
 // row frames a and 8 column frames b, popc(a & b) + c: one instruction per

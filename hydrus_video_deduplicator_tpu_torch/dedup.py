@@ -60,6 +60,11 @@ if TYPE_CHECKING:
 
 log = logging.getLogger("hvd")
 
+#: why ``rerank="clip"`` stops: the model it needs is not ported
+RERANK_UNPORTED = (
+    "--rerank clip needs the vision tower, which is not ported yet (ROADMAP Queue 1 item 6)"
+)
+
 
 # ---------------------------------------------------------------------------
 # results / failures / progress
@@ -252,10 +257,7 @@ class HydrusVideoDeduplicator:
         if hash_backend not in ("auto", "native", "gpu"):
             raise ValueError(f"unknown hash backend: {hash_backend!r}")
         if rerank != "none":
-            raise NotImplementedError(
-                "--rerank clip needs the vision tower, which is not ported yet"
-                " (ROADMAP Queue 1 item 12)"
-            )
+            raise NotImplementedError(RERANK_UNPORTED)
         self.db = db
         self.client = client
         self.job_count = job_count

@@ -10,8 +10,9 @@ The JAX package's flag surface, with the device backend spelled ``gpu``:
   --hash-backend auto|native|gpu, --decode-backend, --sampling, --rerank,
   deprecated --overwrite/--no-overwrite warning.
 
-``--rerank clip`` waits on a model not ported yet and stops with a message
-naming the ROADMAP item; ``--gui`` belongs to the JAX package. ``main()``
+``--rerank clip`` waits on a model not ported yet and stops, before it
+connects or opens a database, with a message naming the ROADMAP item;
+``--gui`` belongs to the JAX package. ``main()``
 is callable directly from tests and returns the similar-pair count.
 """
 
@@ -32,7 +33,7 @@ except ImportError:  # pragma: no cover
 from . import __version__, config
 from .client import ClientAPIException, FailedHVDClientConnection, HVDClient, create_client
 from .db import DedupeDB
-from .dedup import HydrusVideoDeduplicator
+from .dedup import RERANK_UNPORTED, HydrusVideoDeduplicator
 from .dedup_util import print_and_log
 
 
@@ -70,6 +71,9 @@ def main(
     (the CLI's only choice) is CUDA; tests pass "cpu" to run the plain
     PyTorch versions.
     """
+    if rerank != "none":  # before any connection or database, as the JAX package does
+        print(f"[red] ERROR: {RERANK_UNPORTED}")
+        raise ExitException(1)
     if decode_backend is not None:
         # flag > env > default; the decode layer reads the env var lazily
         import os

@@ -73,7 +73,7 @@ def test_a_failed_build_raises_with_the_compiler_output(fake_toolkit):
 
 
 #: the kernels whose frame pairs run on the shared tensor-core header
-MMA_KERNELS = ("similarity_block", "similarity_segments")
+MMA_KERNELS = ("exists_mask_sweep", "similarity_block", "similarity_segments")
 
 
 def test_sources_follow_quoted_includes():

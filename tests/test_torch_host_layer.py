@@ -17,9 +17,11 @@ import pytest
 from hydrus_video_deduplicator_tpu import hashing as jax_hashing
 from hydrus_video_deduplicator_tpu import vpdq as jax_vpdq
 from hydrus_video_deduplicator_tpu.db import DedupeDB as jax_db
+from hydrus_video_deduplicator_tpu.native import decode as jax_decode
 from hydrus_video_deduplicator_tpu.ops import reps as jax_reps
 from hydrus_video_deduplicator_tpu_torch import hashing, native, scene_library, vpdq
 from hydrus_video_deduplicator_tpu_torch.db import DedupeDB
+from hydrus_video_deduplicator_tpu_torch.native import decode as port_decode
 from hydrus_video_deduplicator_tpu_torch.ops import reps
 
 from .unit_tests.test_pruned_search import _mixed_corpus
@@ -49,11 +51,37 @@ def test_extract_reps_equals_the_original(blobs, radius_cap):
     assert reps.prune_tolerance(radius_cap) == jax_reps.prune_tolerance(radius_cap)
 
 
-def test_compute_phash_of_a_corpus_video_is_byte_equal():
-    data = VIDEO.read_bytes()
-    got = hashing.compute_phash(data).bytes
+def _jax_phash(video: Path) -> bytes:
+    """The JAX package's compute_phash of ``video``, through its native
+    decoder. Several test processes may run that package's ``make`` at
+    once, and a process that loads a library another is still writing
+    marks the decoder unavailable and decodes through OpenCV instead; then
+    a fresh interpreter computes the hash, after the builds have finished.
+    It must find the native decoder wherever the port's own loads."""
+    if jax_decode.is_available():
+        return jax_hashing.compute_phash(video.read_bytes()).bytes
+    code = (
+        "import sys; from hydrus_video_deduplicator_tpu import hashing; "
+        "from hydrus_video_deduplicator_tpu.native import decode; "
+        "phash = hashing.compute_phash(open(sys.argv[1], 'rb').read()).bytes; "
+        "print(decode.is_available(), phash.hex())"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(video)], cwd=REPO, capture_output=True, text=True,
+        timeout=300, check=True,
+    )
+    native, phash = proc.stdout.split()
+    assert native == "True" or not port_decode.is_available(), proc.stderr
+    return bytes.fromhex(phash)
+
+
+def test_compute_phash_of_a_corpus_video_is_byte_equal(monkeypatch):
+    got = hashing.compute_phash(VIDEO.read_bytes()).bytes
     assert len(got) > 0 and len(got) % 32 == 0
-    assert got == jax_hashing.compute_phash(data).bytes
+    assert got == _jax_phash(VIDEO)
+    # the same comparison when this process's JAX decoder failed to load
+    monkeypatch.setattr(jax_decode, "is_available", lambda: False)
+    assert got == _jax_phash(VIDEO)
 
 
 def _write_db(module, db_dir: Path, items: list[tuple[str, bytes]]) -> None:

@@ -117,8 +117,22 @@ def test_port_cli_spelling_and_unported_paths(tmp_path):
     store = _subset_store()
     with pytest.raises(SystemExit):  # the JAX spelling is not the port's
         _run(entrypoint.main, store, tmp_path / "a", search_backend="tpu", device="cpu")
-    with pytest.raises(SystemExit):  # --rerank clip waits on the vision tower
-        _run(entrypoint.main, store, tmp_path / "b", rerank="clip", device="cpu")
+    # --rerank clip waits on the vision tower: refused before any connection
+    # or database, as the JAX package refuses it
+    server = FakeHydrus(store)
+    server.start()
+    try:
+        with pytest.raises(SystemExit) as exc:
+            entrypoint.main(
+                api_key=DEFAULT_ACCESS_KEY, api_url=server.url, dedup_database_dir=tmp_path / "b",
+                rerank="clip", device="cpu",
+            )
+    finally:
+        server.stop()
+    assert exc.value.code == 1
+    assert server.requests_seen == []
+    assert DedupeDB.get_db_name().endswith(".sqlite")
+    assert not list((tmp_path / "b").glob("*.sqlite*"))  # no database file appeared
 
 
 def test_backend_choices_map_onto_the_base_class(monkeypatch):

@@ -183,3 +183,18 @@ def test_kernel_matches_plain_on_cuda(cuda_device, monkeypatch):
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda_device)
         pdq_filter.pdq_filter_batch(flat[1:].view(x.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 513])
+def test_kernel_matches_plain_at_ragged_batches_on_cuda(cuda_device, batch):
+    """Batches that are no multiple of the kernel's warps per block or of
+    its grid's warps: every band of every frame lands where the plain
+    version puts it."""
+    rng = np.random.default_rng(batch)
+    x = torch.from_numpy(rng.integers(0, 256, (batch, 3, 512, 512), dtype=np.uint8))
+    x = x.to(cuda_device)
+    got = pdq_filter.pdq_filter_batch(x)
+    want = pdq_filter.pdq_filter_batch_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

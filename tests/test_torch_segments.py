@@ -130,6 +130,55 @@ def test_plain_sweep_matches_xla_twin(rng, tol):
     assert not got[:, seg.STEP_SLOTS : 2 * seg.STEP_SLOTS].any()  # invalid step
 
 
+def _out_of_range_inputs(rng):
+    """Three versions of one sweep's inputs, every step valid: with a row
+    frame given slot id 300 and a column frame given slot id 70, each a
+    copy of a real frame of the other side that it would match; with those
+    two frames padding (-1); and with their real slot ids. The column
+    frames are the last two of the corpus, whose videos have no planted
+    near copy, so with real ids each sets a bit that nothing else sets."""
+    rp, ri, cp, ci, valid = _sweep_inputs(rng)
+    valid[:] = 1
+    real_c = np.flatnonzero(ci >= 0)
+    r_bad = 10
+    r_src = int(np.flatnonzero((ri >= 0) & (ri != ri[r_bad]))[0])
+    c_bad, c_src = int(real_c[-2]), int(real_c[-1])
+    assert ri[r_bad] >= 0
+    rp[r_bad] = cp[c_src]
+    cp[c_bad] = rp[r_src]
+    bad_ri, bad_ci, pad_ri, pad_ci = ri.copy(), ci.copy(), ri.copy(), ci.copy()
+    bad_ri[r_bad], bad_ci[c_bad] = 300, 70
+    pad_ri[r_bad] = pad_ci[c_bad] = -1
+    return [(rp, r, cp, c, valid) for r, c in ((bad_ri, bad_ci), (pad_ri, pad_ci), (ri, ci))]
+
+
+def _words_args(inputs, device):
+    rp, ri, cp, ci, valid = inputs
+    return (
+        ops_sim.to_words(rp, device), torch.from_numpy(ri).to(device),
+        ops_sim.to_words(cp, device), torch.from_numpy(ci).to(device),
+        torch.from_numpy(valid).to(device),
+    )
+
+
+@pytest.mark.parametrize("tol", [31, 79])
+def test_out_of_range_slot_ids_set_no_bit(rng, tol):
+    """A row slot id >= ROW_SLOTS or a column slot id >= CHUNK_SLOTS is
+    padding, on frames that would match: the plain sweep equals the same
+    inputs with those frames padded, and the JAX package's XLA twin."""
+    bad, pad, real = _out_of_range_inputs(rng)
+    got = seg.exists_mask_sweep_plain(*_words_args(bad, CPU), tol)
+    assert torch.equal(got, seg.exists_mask_sweep_plain(*_words_args(pad, CPU), tol))
+    assert not torch.equal(got, seg.exists_mask_sweep_plain(*_words_args(real, CPU), tol))
+    rp, ri, cp, ci, _ = bad
+    twin = jseg.make_exists_mask_kernel_xla(tol)
+    rf = jseg.unpack_blocks_pm1(jnp.asarray(rp), jnp.asarray(ri))
+    cf = jseg.unpack_blocks_pm1(jnp.asarray(cp), jnp.asarray(ci))
+    dummy = jnp.zeros((1, 1), jnp.int32)
+    want = np.asarray(twin(rf, jnp.asarray(ri), dummy, cf, jnp.asarray(ci), dummy))
+    assert np.array_equal(got.numpy(), want.view(np.int32))
+
+
 def test_sweep_wrapper_takes_the_plain_version_for_cpu_tensors(rng):
     rp, ri, cp, ci, valid = _sweep_inputs(rng, n_steps=3)
     args = (
@@ -186,3 +235,15 @@ def test_kernel_matches_plain_on_cuda(rng, cuda_device, tol, monkeypatch):
     torch.cuda.synchronize()
     assert seg.LAUNCHES["exists_mask_sweep"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [31, 79])
+def test_kernel_matches_plain_on_out_of_range_slot_ids_on_cuda(rng, cuda_device, tol):
+    """Slot ids past a block's range (row 300, column 70) on frames that
+    would match are padding in the kernel too."""
+    bad, _, _ = _out_of_range_inputs(rng)
+    args = _words_args(bad, cuda_device)
+    got = seg.exists_mask_sweep(*args, tol)
+    torch.cuda.synchronize()
+    assert torch.equal(got, seg.exists_mask_sweep_plain(*args, tol))

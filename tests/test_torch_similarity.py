@@ -379,20 +379,23 @@ def _edge_videos(rng):
     for last in (False, True):  # distance tol and tol + 1 in the first and the last k-step
         for d, at31, at79 in ((31, 1, 1), (32, 0, 1), (79, 0, 1), (80, 0, 0)):
             want += [("counts31", 0, len(cols), at31), ("counts79", 0, len(cols), at79)]
+            want += [("sweep31", 0, len(cols), at31), ("sweep79", 0, len(cols), at79)]
             cols.append(_flipped(x[0], d, last)[None])
     # a column video ending at column 127 (the first quarter's last) whose
     # last frame equals row 127 (row tile 1's last): the only match of
     # (row tile 1, quarter 0) is its last element
     last = rnd(128 - len(cols))
     last[-1] = rows[4][-1]
-    want.append(("counts31", 4, len(cols), 1))
+    want += [("counts31", 4, len(cols), 1), ("sweep31", 4, len(cols), 1)]
     cols.append(last)
     # an all-zero real frame at column 128, beside quarters 2 and 3 all
     # padding: it matches the real all-zero row frame, the padding does not
     want += [("counts31", 3, len(cols), 1), ("sims", 3, len(cols), 100)]
+    want += [("sweep31", 3, len(cols), 1), ("sweep79", 3, len(cols), 1)]
     cols.append(np.zeros((1, 32), np.uint8))
     # the straddling video's frames on each side of row 64
     want += [("counts31", 2, len(cols), 1), ("counts31", 2, len(cols) + 1, 10)]
+    want += [("sweep31", 2, len(cols), 1), ("sweep31", 2, len(cols) + 1, 1)]
     cols += [rows[2][:1], rows[2][50:60]]
     return rows, cols, want
 
@@ -427,7 +430,17 @@ def _edge_outputs(case, device):
         "mask1": seg.similarity_segments(a, sa, ca, b, sb, cb, v, 1),
         "counts31": seg.exists_counts(a, sa, b, sb, v, 31),
         "counts79": seg.exists_counts(a, sa, b, sb, v, 79),
+        "sweep31": seg.exists_mask_sweep(a, sa, b, sb, v, 31),
+        "sweep79": seg.exists_mask_sweep(a, sa, b, sb, v, 79),
     }
+
+
+def _at(out: torch.Tensor, mode: str, row_slot: int, col: int) -> int:
+    """The output of ``mode`` for (row slot, column): a count or a
+    similarity, or the bit of a row-packed mask (sweep, mask)."""
+    if mode.startswith(("sweep", "mask")):
+        return (int(out[row_slot // 32, col]) >> (row_slot % 32)) & 1
+    return int(out[row_slot, col])
 
 
 def test_plain_versions_at_the_edge_cases(edge_case):
@@ -436,10 +449,11 @@ def test_plain_versions_at_the_edge_cases(edge_case):
     _, rmap, cmap, want = edge_case
     got = _edge_outputs(edge_case, CPU)
     for mode, i, j, value in want:
-        assert got[mode][_slot(rmap, i), _slot(cmap, j)] == value, (mode, i, j)
+        assert _at(got[mode], mode, _slot(rmap, i), _slot(cmap, j)) == value, (mode, i, j)
     n_cols = max(j for _, _, j, _ in want) + 1
     for i in range(5):  # every row video matches its own copy in chunk 1
         assert got["sims"][_slot(rmap, i), _slot(cmap, n_cols + i)] == 100
+        assert _at(got["sweep31"], "sweep31", _slot(rmap, i), _slot(cmap, n_cols + i)) == 1
     # the tile of row tile 1 and column quarter 0 holds one match, its last element
     rp, ri, _, cp, ci, _, _ = edge_case[0]["np"]
     dist = np.bitwise_count(rp[64:128, None, :] ^ cp[None, :128]).sum(-1)
@@ -448,7 +462,7 @@ def test_plain_versions_at_the_edge_cases(edge_case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["sims", "mask1", "counts31", "counts79"])
+@pytest.mark.parametrize("mode", ["sims", "mask1", "counts31", "counts79", "sweep31", "sweep79"])
 def test_kernel_matches_plain_at_the_edge_cases_on_cuda(edge_case, cuda_device, mode):
     """Distance tol and tol + 1 in the first and the last k-step, a row slot
     straddling two 64-row tiles, a tile whose only match is its last
@@ -456,3 +470,40 @@ def test_kernel_matches_plain_at_the_edge_cases_on_cuda(edge_case, cuda_device, 
     got = _edge_outputs(edge_case, cuda_device)[mode]
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), _edge_outputs(edge_case, CPU)[mode])
+
+
+@pytest.fixture(scope="module")
+def dense_tile():
+    """One row block and one column step holding the same 2,048 frames (256
+    row videos, 4 x 64 column videos, 8 frames each), every frame within 24
+    bits of one base frame: every frame pair matches at tolerance 31, so
+    every fragment of every vote takes the kernels' slow path."""
+    rng = np.random.default_rng(17)
+    base = rng.integers(0, 256, 32, dtype=np.uint8)
+    frames = np.stack(
+        [_flip_bits(base, rng.choice(256, int(rng.integers(0, 13)), replace=False)) for _ in range(2048)]
+    )
+    items = [(k, frames[8 * k : 8 * k + 8].tobytes()) for k in range(256)]
+    rblocks = seg.pack_blocks(items, seg.ROW_FRAMES, seg.ROW_SLOTS)
+    cblocks = seg.pack_blocks(items, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS)
+    assert len(rblocks) == 1 and len(cblocks) == seg.N_SPLIT
+    rp, ri, _, _ = seg.stack_blocks(rblocks, 1, seg.ROW_FRAMES, seg.ROW_SLOTS)
+    cp, ci, _, _ = seg.stack_blocks(cblocks, seg.N_SPLIT, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS)
+    assert (ri >= 0).all() and (ci >= 0).all()
+    return rp, ri, cp, ci
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [31, 79])
+def test_sweep_kernel_matches_plain_on_a_dense_tile_on_cuda(dense_tile, cuda_device, tol):
+    rp, ri, cp, ci = dense_tile
+    args = (
+        ops_sim.to_words(rp, cuda_device), torch.from_numpy(ri).to(cuda_device),
+        ops_sim.to_words(cp, cuda_device), torch.from_numpy(ci).to(cuda_device),
+        torch.ones(1, dtype=torch.int32, device=cuda_device),
+    )
+    want = seg.exists_mask_sweep_plain(*args, tol)
+    assert (want == -1).all()  # every slot pair holds a match
+    got = seg.exists_mask_sweep(*args, tol)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
