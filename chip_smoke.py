@@ -97,7 +97,26 @@ Phases (each raises on failure; nothing is caught):
    the planted set, the search cache must be fully marked, a re-run must
    mark 0; the bucketed similarity kernel must have launched beside the
    sweep ("auto") or the segment similarity kernel ("none"), and no
-   torch.matmul may run inside the bucketed route.
+   torch.matmul may run inside the bucketed route;
+10. the embedding rerank (--rerank clip), whose tower has no hand-written
+   kernel (its matmuls, softmax and layer norms are torch ops in float32):
+   (a) the port's tower on the card against the same tower on the CPU at
+   CLIP ViT-B/32's shape (width 768, 12 layers, 12 heads, patch 32, image
+   224, projection 512, quick_gelu, pre_ln), random weights from a seed, on
+   one video of 32 frames: the unit-norm embeddings and the cosines of 16
+   frame pairs within 1e-4; the card's ms a video (the port's
+   device_timer, CUDA events), frames/s and float32 FLOP/s of its matmuls,
+   counted from the shapes; (b) deduplicate() with rerank="clip",
+   hash_backend="gpu" and search_backend="gpu" on 200 scenes of the
+   phase-5 generator (400 MJPG videos, 200 planted pairs), pixel-identity
+   weights at ViT-B/32's shape, inside the port's trace_to: at threshold
+   0.6 the marked set must equal the planted set, then on the same
+   database with its search cache cleared the same gate at 1.01 must mark
+   nothing and reject every pair it checks; the tower's parameters must be
+   on the card and the PDQ and segment similarity kernels must have
+   launched (their counts set to 0 just before). It prints the share of
+   the traced window in which a CUDA kernel ran (the union of the kernel
+   intervals; 1 minus the device's idle share).
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
@@ -127,6 +146,12 @@ library size of phases 2, 7, 8 and the "auto" run of phase 9 (default
 
     python3 -c "import sys, chip_smoke as c; \
 sys.exit(c.stage4_orchestrator(2, *c.build_library(1_000_000), {'exists_mask_sweep'}) is None)"
+
+Phase 2 inside trace_to, printing its busy share (any phase runs so through
+``traced``):
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.traced(c.stage4_orchestrator, 2, \
+*c.build_library(100_000), {'exists_mask_sweep'}) is None)"
 """
 
 from __future__ import annotations
@@ -169,6 +194,15 @@ STAGE1_SAMPLE = 1_000
 LONG_CLIP = 1024
 N_NONE = 20_000
 LONG_PLANTS = {"auto": (60, 30, 30), "none": (40, 15, 10)}
+#: phase 10: CLIP ViT-B/32's vision tower (openai/clip-vit-base-patch32),
+#: the frames of one video, its frame pairs compared, the scenes of the
+#: rerank run and the tolerance of the card against the CPU
+VIT_B32 = {"width": 768, "layers": 12, "heads": 12, "patch": 32, "image_size": 224,
+           "embed_dim": 512}
+RERANK_FRAMES = 32
+RERANK_FRAME_PAIRS = 16
+RERANK_SCENES = 200
+TOWER_TOL = 1e-4
 #: the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -821,8 +855,8 @@ def phase4_pdq_kernel_vs_plain(dev):
     }
 
 
-def build_stage1_store():
-    """{sha256: MJPG AVI bytes} of STAGE1_SCENES scenes x 2 versions, with
+def build_stage1_store(n_scenes: int = STAGE1_SCENES):
+    """{sha256: MJPG AVI bytes} of n_scenes scenes x 2 versions, with
     (scene, version) per hash."""
     from pathlib import Path
 
@@ -850,12 +884,12 @@ def build_stage1_store():
     store, label = {}, {}
     with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_avi_") as workdir:
         with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
-            for videos in pool.map(lambda s: scene(s, workdir), range(STAGE1_SCENES)):
+            for videos in pool.map(lambda s: scene(s, workdir), range(n_scenes)):
                 for s, version, data in videos:
                     h = sha256_hex(data)
                     store[h], label[h] = data, (s, version)
-    if len(store) != 2 * STAGE1_SCENES:
-        raise AssertionError("phase 5: two generated videos have the same bytes")
+    if len(store) != 2 * n_scenes:
+        raise AssertionError("two generated videos have the same bytes")
     return store, label
 
 
@@ -1234,6 +1268,187 @@ def phase8_block_vs_plain(blobs, dev):
     return result
 
 
+def traced(fn, *args, **kwargs):
+    """fn(*args, **kwargs) inside the port's trace_to; logs the share of
+    the traced window in which a CUDA kernel ran, and returns fn's result."""
+    from hydrus_video_deduplicator_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_trace_") as log_dir:
+        t0 = time.perf_counter()
+        with profiling.trace_to(log_dir):
+            out = fn(*args, **kwargs)
+        t_traced = time.perf_counter() - t0
+        trace = os.path.join(log_dir, profiling.TRACE_FILE)
+        mb = os.path.getsize(trace) / 1e6
+        busy, window, kernels = profiling.device_busy_share(trace)
+    log(
+        f"traced {fn.__name__}: {kernels} CUDA kernels busy {busy:.3f} s of a {window:.3f} s "
+        f"traced window: busy share {100 * busy / max(window, 1e-9):.2f} %, idle "
+        f"{100 * (1 - busy / max(window, 1e-9)):.2f} % ({t_traced:.3f} s with the trace's "
+        f"export, {mb:.1f} MB)"
+    )
+    return out
+
+
+def vit_params(seed: int, pixel_identity: bool = False) -> dict:
+    """ViT-B/32's shape from make_synthetic_params: random weights (every
+    kernel and the projection redrawn with variance 1 / fan-in, so that
+    the embedding follows the frame's content through every layer) with
+    CLIP's pre-layernorm and quick_gelu, or the pixel-identity tower."""
+    import numpy as np
+
+    from hydrus_video_deduplicator_tpu_torch.models import embed
+
+    rng = np.random.default_rng(seed)
+    params = embed.make_synthetic_params(rng, pixel_identity=pixel_identity, **VIT_B32)
+    if not pixel_identity:
+        for k, v in params.items():
+            if k.endswith("kernel") or k == "proj":
+                fan_in = int(np.prod(v.shape[:-1]))
+                params[k] = (rng.standard_normal(v.shape) / np.sqrt(fan_in)).astype(np.float32)
+        width = VIT_B32["width"]
+        params["pre_ln/scale"] = (1 + 0.1 * rng.standard_normal(width)).astype(np.float32)
+        params["pre_ln/bias"] = (0.1 * rng.standard_normal(width)).astype(np.float32)
+    params["act"] = np.asarray("quick_gelu")
+    return params
+
+
+def vit_flops(params: dict, frames: int) -> int:
+    """The tower's matmul operations (a multiply-add is two) for ``frames``
+    frames, from its shapes: patch embedding, every block's qkv, logits,
+    weighted sum, output and MLP, and the projection."""
+    p, d = params["patch_embed/kernel"].shape[0], params["cls_token"].shape[0]
+    img, hidden = int(params["image_size"]), params["blocks.0.mlp/fc1_kernel"].shape[1]
+    n = (img // p) ** 2
+    t = n + 1
+    per_block = 2 * t * d * 3 * d + 2 * 2 * t * t * d + 2 * t * d * d + 2 * 2 * t * d * hidden
+    layers = sum(1 for k in params if k.endswith("mlp/fc1_kernel"))
+    per_frame = 2 * n * p * p * 3 * d + layers * per_block + 2 * d * params["proj"].shape[1]
+    return frames * per_frame
+
+
+def phase10_tower(dev) -> None:
+    """The tower on the card against the tower on the CPU at ViT-B/32's
+    shape, random weights, one video of RERANK_FRAMES frames; timed with
+    the port's device_timer (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.models import embed
+    from hydrus_video_deduplicator_tpu_torch.utils import device_timer
+
+    params = vit_params(10)
+    rng = np.random.default_rng(10)
+    blocks = rng.integers(0, 256, (RERANK_FRAMES, 16, 16, 3), dtype=np.uint8)
+    frames = np.repeat(np.repeat(blocks, 32, 1), 32, 2)  # 512 x 512 x 3
+    card = embed.embedder_from_params(params, dev)
+    if not all(t.device == dev for t in card.params.values()):
+        raise AssertionError("phase 10: the tower's parameters are not on the card")
+    got = card.embed_frames(frames)
+    t0 = time.perf_counter()
+    want = embed.embedder_from_params(params, "cpu").embed_frames(frames)
+    t_cpu = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    a, b = np.arange(0, 2 * RERANK_FRAME_PAIRS, 2), np.arange(1, 2 * RERANK_FRAME_PAIRS, 2)
+    cos_card, cos_cpu = (got[a] * got[b]).sum(1), (want[a] * want[b]).sum(1)
+    cos_err = float(np.abs(cos_card - cos_cpu).max())
+    x = torch.from_numpy(frames).to(dev)
+    with torch.inference_mode():
+        sec = device_timer(lambda i: card.forward(x), iters=20, warmup=3)
+    flops = vit_flops(params, RERANK_FRAMES)
+    log(
+        f"phase 10 tower (ViT-B/32: width 768, 12 layers, 12 heads, patch 32, 224, 512, "
+        f"quick_gelu, pre_ln; random weights): card vs CPU on {RERANK_FRAMES} frames max abs "
+        f"error {err:.3e}, cosine of {RERANK_FRAME_PAIRS} frame pairs {cos_err:.3e} (tolerance "
+        f"{TOWER_TOL}; cosines {cos_cpu.min():.4f}..{cos_cpu.max():.4f}); card "
+        f"{1e3 * sec:.4f} ms a {RERANK_FRAMES}-frame video (device_timer, CUDA events, uint8 "
+        f"frames on the card), {RERANK_FRAMES / sec:.1f} frames/s, {flops / 1e9:.3f} GFLOP "
+        f"of matmuls, {flops / sec / 1e12:.3f} TFLOP/s float32 ({100 * flops / sec / FP32_OPS_PER_S:.1f} "
+        f"% of 67 TFLOP/s); CPU {t_cpu:.3f} s; {card_line()}"
+    )
+    if err > TOWER_TOL or cos_err > TOWER_TOL:
+        raise AssertionError(f"phase 10: the tower on the card differs from the CPU: {err}, {cos_err}")
+
+
+def phase10_rerank(device=None) -> None:
+    """deduplicate() with rerank="clip" on RERANK_SCENES scenes of the
+    phase-5 generator, the GPU hasher and the GPU search, pixel-identity
+    weights at ViT-B/32's shape: at 0.6 the planted pairs are marked, at
+    1.01 (the same database, its search cache cleared, the same gate) none;
+    the PDQ and segment kernels launched and the tower sits on the card."""
+    import numpy as np
+
+    from hydrus_video_deduplicator_tpu_torch import dedup
+    from hydrus_video_deduplicator_tpu_torch.client import HVDClient
+    from hydrus_video_deduplicator_tpu_torch.db import DedupeDB
+    from hydrus_video_deduplicator_tpu_torch.ops import pdq_filter
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+    from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
+
+    store, label = build_stage1_store(RERANK_SCENES)
+    planted = {(s, s) for s in range(RERANK_SCENES)}
+    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_rerank_") as workdir:
+        weights = os.path.join(workdir, "vit_b32.npz")
+        np.savez(weights, **vit_params(11, pixel_identity=True))
+        server = FakeHydrus(store)
+        server.start()
+        try:
+            DedupeDB.set_db_dir(workdir)
+            DedupeDB.create_db()
+            db = DedupeDB.DedupeDb(DedupeDB.get_db_dir(), DedupeDB.get_db_name())
+            db.init_connection()
+            client = HVDClient(None, server.url, DEFAULT_ACCESS_KEY, None)
+            deduper = dedup.HydrusVideoDeduplicator(
+                db, client=client, hash_backend="gpu", search_backend="gpu",
+                rerank="clip", rerank_weights=weights, rerank_threshold=0.6, device=device,
+            )
+            deduper.threshold = THRESHOLD
+            rr = deduper.reranker
+            on = rr.embedder.device
+            if (device is None and on.type != "cuda") or any(
+                t.device != on for t in rr.embedder.params.values()
+            ):
+                raise AssertionError("phase 10: the tower's parameters are not on the card")
+            for counter in (seg.LAUNCHES, pdq_filter.LAUNCHES):
+                for name in counter:
+                    counter[name] = 0
+            t0 = time.perf_counter()
+            pairs = deduper.deduplicate(skip_hashing=False)
+            t_run = time.perf_counter() - t0
+            launches = {**pdq_filter.LAUNCHES, **seg.LAUNCHES}
+            got = {tuple(sorted(label[h][0] for h in pair)) for pair in server.relationships}
+            log(
+                f"phase 10 rerank 0.6: {len(store)} MJPG videos, deduplicate() {t_run:.3f} s; "
+                f"marked {len(got)} pairs (planted {len(planted)}), reported {pairs}; gate "
+                f"rejected {rr.pairs_rejected} of {rr.pairs_checked}; {len(rr._cache)} videos "
+                f"embedded; kernel launches {launches}"
+            )
+            if got != planted or pairs != len(planted):
+                raise AssertionError("phase 10: the marked pairs differ from the planted set")
+            if not launches["pdq_filter"] or not launches["similarity_segments"]:
+                raise AssertionError("phase 10: the PDQ or the segment kernel never launched")
+            if not rr.pairs_checked:
+                raise AssertionError("phase 10: the gate saw no pair")
+            rr.threshold, rr.pairs_checked, rr.pairs_rejected = 1.01, 0, 0
+            db.begin_transaction()
+            with db.conn:
+                db.clear_search_cache()
+            n_marked = len(server.relationships)
+            t0 = time.perf_counter()
+            pairs2 = deduper.deduplicate(skip_hashing=True)
+            log(
+                f"phase 10 rerank 1.01: {time.perf_counter() - t0:.3f} s, reported {pairs2}, "
+                f"gate rejected {rr.pairs_rejected} of {rr.pairs_checked}"
+            )
+            if pairs2 or len(server.relationships) != n_marked:
+                raise AssertionError("phase 10: the gate at 1.01 let a pair through")
+            if rr.pairs_rejected != rr.pairs_checked or not rr.pairs_checked:
+                raise AssertionError("phase 10: at 1.01 the gate did not reject every pair")
+            db.close()
+        finally:
+            server.stop()
+
+
 def main() -> int:
     import torch
 
@@ -1270,6 +1485,8 @@ def main() -> int:
         search_prefilter="none",
     )
     del blobs
+    phase10_tower(dev)
+    traced(phase10_rerank)
     reference = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "hydrus_video_deduplicator_tpu")

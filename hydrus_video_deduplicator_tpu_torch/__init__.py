@@ -2,8 +2,8 @@
 
 The JAX package ``hydrus_video_deduplicator_tpu`` is the reference. This
 package keeps its module layout so each counterpart is easy to find, and
-runs stage 1, perceptual hashing, and stage 4, the exact all-pairs search,
-on an NVIDIA GPU:
+runs stage 1, perceptual hashing, stage 4, the exact all-pairs search, and
+the embedding rerank on an NVIDIA GPU:
 
 - ``models.pdq``              — the plain PyTorch PDQ pipeline, bit-exact to
                                 the numpy oracle.
@@ -20,7 +20,14 @@ on an NVIDIA GPU:
 - ``ops.pair_verify``         — exact similarity of candidate pairs.
 - ``parallel.engine``         — ``GpuSearchEngine``, the pruned and the
                                 unpruned search.
-- ``dedup`` / ``entrypoint``  — the orchestrator and the CLI.
+- ``models.embed``            — the vision tower of the embedding rerank
+                                (a ViT in float32 torch ops), with
+                                ``models.convert_clip`` (CLIP checkpoints)
+                                and ``rerank`` (the pair gate).
+- ``utils``                   — ``trace_to``, ``device_timer`` and the
+                                device busy share of a trace.
+- ``dedup`` / ``entrypoint``  — the orchestrator and the CLI; ``gui`` the
+                                optional PySide6 GUI.
 
 The host layer is the package's own copy of the JAX package's host modules,
 under the same names: ``client``, ``config``, ``db``, ``decode``,

@@ -60,12 +60,6 @@ if TYPE_CHECKING:
 
 log = logging.getLogger("hvd")
 
-#: why ``rerank="clip"`` stops: the model it needs is not ported
-RERANK_UNPORTED = (
-    "--rerank clip needs the vision tower, which is not ported yet (ROADMAP Queue 1 item 6)"
-)
-
-
 # ---------------------------------------------------------------------------
 # results / failures / progress
 # ---------------------------------------------------------------------------
@@ -249,15 +243,19 @@ class HydrusVideoDeduplicator:
         search_prefilter: str = "auto",  # "auto" | "reps" | "none"
         hash_backend: str = "auto",
         sampling: str = "uniform",  # "uniform" (reference parity) | "scene"
-        rerank: str = "none",
+        rerank: str = "none",  # "none" | "clip" (embedding gate, rerank.py)
+        rerank_weights: str | None = None,
+        rerank_threshold: float = 0.85,
         device: "str | torch.device | None" = None,
     ):
         if search_backend not in ("auto", "tree", "gpu"):
             raise ValueError(f"unknown search backend: {search_backend!r}")
         if hash_backend not in ("auto", "native", "gpu"):
             raise ValueError(f"unknown hash backend: {hash_backend!r}")
-        if rerank != "none":
-            raise NotImplementedError(RERANK_UNPORTED)
+        if rerank not in ("none", "clip"):
+            raise ValueError(f"unknown rerank mode: {rerank!r}")
+        if rerank == "clip" and not rerank_weights:
+            raise ValueError("--rerank clip requires --rerank-weights")
         self.db = db
         self.client = client
         self.job_count = job_count
@@ -274,6 +272,28 @@ class HydrusVideoDeduplicator:
         self.hash_backend = hash_backend
         self.sampling = sampling
         self.device = device
+        self.reranker = None
+        if rerank == "clip":
+            from .rerank import ClipReranker
+
+            self.reranker = ClipReranker(
+                rerank_weights, threshold=rerank_threshold, sampling=sampling, device=device
+            )
+
+    def _pair_passes_rerank(self, hash_a: str, hash_b: str) -> bool:
+        """Embedding gate for a candidate pair (always True when the
+        rerank stage is disabled)."""
+        if self.reranker is None:
+            return True
+        return self.reranker.pair_passes(hash_a, hash_b, self.client.get_video)
+
+    def _print_rerank_summary(self) -> None:
+        if self.reranker is not None and self.reranker.pairs_checked:
+            print(
+                f"[blue] Rerank: {self.reranker.pairs_rejected} of"
+                f" {self.reranker.pairs_checked} candidate pairs rejected by"
+                f" the embedding gate."
+            )
 
     # -- stage 0: discovery ------------------------------------------------
 
@@ -362,6 +382,7 @@ class HydrusVideoDeduplicator:
                 else:
                     print("[yellow] Searching for duplicates was interrupted! Progress was saved.")
 
+        self._print_rerank_summary()
         post_dedupe_count = self.client.get_potential_duplicate_count_hydrus()
         new_count = post_dedupe_count - pre_dedupe_count
         if new_count > 0:
@@ -860,6 +881,8 @@ class HydrusVideoDeduplicator:
                 for similar_hash_id, _distance in result:
                     if hash_id != similar_hash_id:
                         file_hash_b = self.db.get_file_hash(similar_hash_id)
+                        if not self._pair_passes_rerank(file_hash_a, file_hash_b):
+                            continue
                         log.info('Similar files found: "%s" and "%s"', file_hash_a, file_hash_b)
                         self.mark_videos_as_duplicates(file_hash_a, file_hash_b)
                         num_similar_pairs += 1
@@ -939,6 +962,7 @@ class HydrusVideoDeduplicator:
         MARK_BATCH = 256
         num_similar_pairs = 0
         marked: set[tuple[int, int]] = set()
+        rejected: set[tuple[int, int]] = set()  # pairs the rerank gate refused
         pending: list[dict] = []
         col_state: dict = {}
         row_id_set = set(row_ids.tolist())
@@ -977,13 +1001,18 @@ class HydrusVideoDeduplicator:
                         pbar.update(1)
                         continue
                     key = (min(hash_a, hash_b), max(hash_a, hash_b))
+                    if key in rejected:
+                        pbar.update(1)
+                        continue
                     if key not in marked:
+                        fh_a = self.db.get_file_hash(hash_a)
+                        fh_b = self.db.get_file_hash(hash_b)
+                        if not self._pair_passes_rerank(fh_a, fh_b):
+                            rejected.add(key)  # neither direction is counted
+                            pbar.update(1)
+                            continue
                         marked.add(key)
-                        pending.append(
-                            self._relationship_payload(
-                                self.db.get_file_hash(hash_a), self.db.get_file_hash(hash_b)
-                            )
-                        )
+                        pending.append(self._relationship_payload(fh_a, fh_b))
                         if len(pending) >= MARK_BATCH:
                             post_pending()
                     num_similar_pairs += 2 if n_searched <= c < chunk_rows_start_pos else 1

@@ -7,18 +7,19 @@ The JAX package's flag surface, with the device backend spelled ``gpu``:
   --clear-search-tree, --clear-search-cache, --failed-page-name,
   --job-count (default -2), --dedup-database-dir, --verbose, --debug
   (hidden), --search-backend auto|tree|gpu, --search-prefilter,
-  --hash-backend auto|native|gpu, --decode-backend, --sampling, --rerank,
+  --hash-backend auto|native|gpu, --decode-backend, --sampling, --rerank
+  none|clip, --rerank-weights, --rerank-threshold, --gui,
   deprecated --overwrite/--no-overwrite warning.
 
-``--rerank clip`` waits on a model not ported yet and stops, before it
-connects or opens a database, with a message naming the ROADMAP item;
-``--gui`` belongs to the JAX package. ``main()``
-is callable directly from tests and returns the similar-pair count.
+``--rerank clip`` without a readable ``--rerank-weights`` file stops before
+it connects or opens a database. ``main()`` is callable directly from tests
+and returns the similar-pair count.
 """
 
 from __future__ import annotations
 
 import logging
+import sys
 from pathlib import Path
 from typing import TYPE_CHECKING
 
@@ -33,7 +34,7 @@ except ImportError:  # pragma: no cover
 from . import __version__, config
 from .client import ClientAPIException, FailedHVDClientConnection, HVDClient, create_client
 from .db import DedupeDB
-from .dedup import RERANK_UNPORTED, HydrusVideoDeduplicator
+from .dedup import HydrusVideoDeduplicator
 from .dedup_util import print_and_log
 
 
@@ -63,16 +64,19 @@ def main(
     sampling: str = "uniform",
     decode_backend: str | None = None,
     rerank: str = "none",
+    rerank_weights: str | None = None,
+    rerank_threshold: float = 0.85,
     device: str | None = None,
 ) -> int:
     """Run the deduplicator; returns the number of similar pairs found.
 
-    device: the torch device of the GPU hasher and the search engine. None
-    (the CLI's only choice) is CUDA; tests pass "cpu" to run the plain
-    PyTorch versions.
+    device: the torch device of the GPU hasher, the search engine and the
+    rerank tower. None (the CLI's only choice) is CUDA; tests pass "cpu" to
+    run the plain PyTorch versions.
     """
-    if rerank != "none":  # before any connection or database, as the JAX package does
-        print(f"[red] ERROR: {RERANK_UNPORTED}")
+    if rerank == "clip" and (not rerank_weights or not Path(rerank_weights).is_file()):
+        # before any connection or database, as the JAX package checks it
+        print("[red] ERROR: --rerank clip needs --rerank-weights pointing at a checkpoint.")
         raise ExitException(1)
     if decode_backend is not None:
         # flag > env > default; the decode layer reads the env var lazily
@@ -200,9 +204,11 @@ def main(
             hash_backend=hash_backend,
             sampling=sampling,
             rerank=rerank,
+            rerank_weights=rerank_weights,
+            rerank_threshold=rerank_threshold,
             device=device,
         )
-    except (NotImplementedError, ValueError) as exc:  # unknown or unported choice
+    except ValueError as exc:  # an unknown choice
         print(f"[red] ERROR: {exc}")
         raise ExitException(1) from exc
     if debug:
@@ -316,9 +322,29 @@ def _build_cli():
         "--rerank",
         default="none",
         type=click.Choice(["none", "clip"]),
-        help="Embedding rerank of candidate pairs (not ported yet: only 'none' runs).",
+        help="Embedding rerank of candidate pairs after the pHash prefilter:"
+        " keeps a pair only when the vision-tower cosine similarity clears"
+        " --rerank-threshold (the tower runs on the GPU).",
     )
-    def cli(**kwargs):
+    @click.option(
+        "--rerank-weights",
+        default=None,
+        type=click.Path(exists=True),
+        help="Vision-tower checkpoint (.npz; see models/embed.py for the"
+        " layout, e.g. a converted CLIP ViT).",
+    )
+    @click.option(
+        "--rerank-threshold",
+        default=0.85,
+        type=float,
+        help="Minimum embedding cosine similarity to keep a candidate pair.",
+    )
+    @click.option(
+        "--gui/--no-gui",
+        default=bool(config.HVD_GUI),
+        help="Launch the GUI. This ignores all other CLI arguments.",
+    )
+    def cli(gui, **kwargs):
         if kwargs.get("api_key") is None:
             kwargs["api_key"] = click.prompt("Api key", default="", show_default=False)
         kwargs["query"] = list(kwargs["query"]) or None
@@ -328,13 +354,32 @@ def _build_cli():
     return cli
 
 
-def run_main() -> None:
+def run_main(gui: bool = False) -> None:
     print(f"[blue] Hydrus Video Deduplicator (PyTorch/CUDA port) {__version__} [/]")
+    want_gui = gui or bool(int(config.HVD_GUI or 0)) or (
+        len(sys.argv) > 1 and sys.argv[1] == "--gui"
+    )
+    if want_gui:
+        try:
+            from .gui.gui import gui_main
+        except ImportError as exc:
+            print_and_log(
+                logging.getLogger("main"),
+                f"Failed to import GUI dependencies. Did you install the GUI"
+                f" dependencies? Error: {exc}",
+                logging.FATAL,
+            )
+            raise ExitException(1) from exc
+        gui_main()
+        return
     try:
         _build_cli()(standalone_mode=True)
     except KeyboardInterrupt as exc:
         raise ExitException(-1) from exc
+    finally:
+        if config.is_windows_exe():
+            input("Press ENTER to exit...")
 
 
 if __name__ == "__main__":
-    run_main()
+    run_main(gui=False)

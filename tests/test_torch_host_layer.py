@@ -6,6 +6,7 @@ several processes start it at once on an empty build directory."""
 
 from __future__ import annotations
 
+import re
 import shutil
 import subprocess
 import sys
@@ -184,3 +185,44 @@ def test_native_library_builds_once_for_six_processes(tmp_path):
     assert [o.strip() for o, _ in outs] == ["True"] * 6, [e for _, e in outs]
     built = sorted(p.name for p in (pkg / "build").iterdir())
     assert built == [".lock", "libhvdaccel.so"]
+
+
+#: the port's verbatim copies of JAX package files, and each difference:
+#: (a regular expression matching the original's text once, the copy's text)
+COPIES = {
+    "models/convert_clip.py": [
+        (r"python -m hydrus_video_deduplicator_tpu\.models", "python -m hydrus_video_deduplicator_tpu_torch.models"),
+    ],
+    "gui/__init__.py": [],
+    "gui/gui.py": [
+        (r"reference \(/\S+/reference/src/\n", "reference (upstream\nsrc/"),
+        (r"Deduplicator TPU \{", "Deduplicator (PyTorch/CUDA port) {"),
+        (r'\["auto", "tree", "tpu"\]', '["auto", "tree", "gpu"]'),
+        (r'\["auto", "native", "tpu"\]', '["auto", "native", "gpu"]'),
+        (r"prune for the TPU engine", "prune for the GPU engine"),
+        (
+            r"auto: TPU exact all-pairs engine when a device is available",
+            "auto: GPU exact all-pairs engine when CUDA is available",
+        ),
+        (r'"tpu: force the device engine\."', '"gpu: force the device engine."'),
+        (r'"tpu: device-batched hashing', '"gpu: device-batched hashing'),
+    ],
+    **{
+        name: [
+            (r"from hydrus_video_deduplicator_tpu import", "from hydrus_video_deduplicator_tpu_torch import"),
+            (r"from hydrus_video_deduplicator_tpu\.entrypoint", "from hydrus_video_deduplicator_tpu_torch.entrypoint"),
+        ]
+        for name in ("winexe_entrypoint.py", "winexe_gui_entrypoint.py")
+    },
+}
+
+
+@pytest.mark.parametrize("name", sorted(COPIES))
+def test_copied_file_differs_from_its_original_only_as_listed(name):
+    """The GUI, the Windows entry points and the CLIP converter are copies:
+    the original with each listed difference applied, once, is the copy."""
+    text = (REPO / "hydrus_video_deduplicator_tpu" / name).read_text()
+    for pattern, new in COPIES[name]:
+        text, n = re.subn(pattern, lambda _m, new=new: new, text)
+        assert n == 1, (name, pattern)
+    assert (REPO / "hydrus_video_deduplicator_tpu_torch" / name).read_text() == text

@@ -7,6 +7,7 @@ on the unpruned segment route against the pruned route and the VP-tree."""
 from __future__ import annotations
 
 import functools
+import re
 import time
 import uuid
 from pathlib import Path
@@ -117,15 +118,15 @@ def test_port_cli_spelling_and_unported_paths(tmp_path):
     store = _subset_store()
     with pytest.raises(SystemExit):  # the JAX spelling is not the port's
         _run(entrypoint.main, store, tmp_path / "a", search_backend="tpu", device="cpu")
-    # --rerank clip waits on the vision tower: refused before any connection
-    # or database, as the JAX package refuses it
+    # --rerank clip without weights: refused before any connection or
+    # database, as the JAX package refuses it
     server = FakeHydrus(store)
     server.start()
     try:
         with pytest.raises(SystemExit) as exc:
             entrypoint.main(
                 api_key=DEFAULT_ACCESS_KEY, api_url=server.url, dedup_database_dir=tmp_path / "b",
-                rerank="clip", device="cpu",
+                rerank="clip", rerank_weights=None, device="cpu",
             )
     finally:
         server.stop()
@@ -133,6 +134,30 @@ def test_port_cli_spelling_and_unported_paths(tmp_path):
     assert server.requests_seen == []
     assert DedupeDB.get_db_name().endswith(".sqlite")
     assert not list((tmp_path / "b").glob("*.sqlite*"))  # no database file appeared
+
+
+@pytest.mark.parametrize("jax_backend, port_backend", [("tree", "tree"), ("tpu", "gpu")])
+def test_rerank_counts_match_the_jax_orchestrator(tmp_path, capsys, jax_backend, port_backend):
+    """At a threshold that splits the candidate pairs, the port's
+    deduplicate() checks and rejects as many pairs as the JAX package's on
+    the same search backend, and prints the same rerank summary."""
+    from .test_torch_rerank import SPLIT_SEED, run_main, splitting_threshold, write_weights
+
+    weights = write_weights(tmp_path / "vit.npz", SPLIT_SEED)
+    threshold, kept = splitting_threshold(weights)
+    store = _subset_store()
+    kwargs = {"rerank_weights": str(weights), "rerank_threshold": threshold}
+    jax_pairs, jax_marked, jax_summary = run_main(
+        jax_entrypoint.main, store, tmp_path / "jax", capsys, search_backend=jax_backend, **kwargs
+    )
+    pairs, marked, summary = run_main(
+        entrypoint.main, store, tmp_path / "port", capsys, search_backend=port_backend,
+        device="cpu", **kwargs,
+    )
+    assert summary == jax_summary and summary is not None
+    rejected, checked = map(int, re.findall(r"\d+", summary))
+    assert 0 < rejected < checked
+    assert marked == jax_marked == kept and pairs == jax_pairs == len(kept)
 
 
 def test_backend_choices_map_onto_the_base_class(monkeypatch):
