@@ -116,7 +116,23 @@ Phases (each raises on failure; nothing is caught):
    on the card and the PDQ and segment similarity kernels must have
    launched (their counts set to 0 just before). It prints the share of
    the traced window in which a CUDA kernel ran (the union of the kernel
-   intervals; 1 minus the device's idle share).
+   intervals; 1 minus the device's idle share);
+11. the multi-device path (``parallel/mesh.py``): a mesh over every
+   visible card, or, with one card, MESH_MEMBERS_ON_ONE_CARD members
+   sharing it, each on a stream of its own (then the phase measures the
+   sharding's cost, not a speed-up); ``parallel.dryrun.dryrun_multidevice``
+   on it (stages 1-7, each against the port on one device); phase 2's
+   library through stage 4 with the orchestrator's _device_mesh returning
+   the mesh and search_prefilter="auto" (as phase 2: the planted set, the
+   cache fully marked, a re-run marking 0, and the sweep launched on every
+   member); the long-tail library of phase 9's "none" run on the mesh
+   (kernel 3 and kernel 5 on every member), both stage-4 runs starting
+   from a copy of their phase's database after stage 2, so stage 2 is
+   not run again; stage 1 of phase 10's 400 MJPG
+   videos on the mesh as phase 5 runs it (no file failing, 100 sampled
+   queued hashes equal to compute_phash, the planted set, the PDQ kernel
+   on every member). It prints each member's launches of kernels 1, 3, 4
+   and 5, and the stage-4 seconds beside phases 2 and 9 with the card.
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
@@ -147,6 +163,11 @@ library size of phases 2, 7, 8 and the "auto" run of phase 9 (default
     python3 -c "import sys, chip_smoke as c; \
 sys.exit(c.stage4_orchestrator(2, *c.build_library(1_000_000), {'exists_mask_sweep'}) is None)"
 
+Phase 11's mesh against one device in turns (one, mesh, mesh, one), stage 4
+and stage 1, as PERF.md compares them (``mesh_turns``):
+
+    python3 -c "import chip_smoke as c; c.mesh_turns()"
+
 Phase 2 inside trace_to, printing its busy share (any phase runs so through
 ``traced``):
 
@@ -160,6 +181,7 @@ import json
 import os
 import re
 import runpy
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -184,6 +206,14 @@ MMA_LIBRARIES = ("exists_mask_sweep", "similarity_block", "similarity_segments")
 MMA_OPCODES = re.compile(r"\b(IGMMA|HGMMA|QGMMA|IMMA|HMMA|BMMA)\b")
 #: the int8 GEMM yardstick's output chunk (int32 entries)
 YARDSTICK_CHUNK_ENTRIES = 1 << 28
+#: phase 2, 7, 9 and 11: stage-4 search+mark seconds by (phase,
+#: search_prefilter); phases 5 and 11: stage-1 (seconds, hashed frames)
+STAGE4_S: dict = {}
+STAGE1_S: dict = {}
+#: phase 11: the members on one card when only one is visible, and the
+#: sampled files of its stage-1 run
+MESH_MEMBERS_ON_ONE_CARD = 4
+MESH_STAGE1_SAMPLE = 100
 #: phase 5: scenes (two versions each), seconds per video at 1 fps, side
 STAGE1_SCENES = 5_000
 STAGE1_SECONDS = 16
@@ -529,6 +559,38 @@ class StageTimers:
         self._restore += [(owner, name, real), (inner, inner_name, real_inner)]
         return calls
 
+    def patch(self, owner, name: str, value):
+        """Set owner.name to value until restore()."""
+        self._restore.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def count_members(self, mesh, module, name: str, counter: dict, key: str) -> list:
+        """Launches of kernel wrapper module.name per member of ``mesh``: a
+        call that raised counter[key] launched on the member whose device
+        and stream were current. Returns the per-member counts (a list)."""
+        import torch
+
+        real = getattr(module, name)
+        counts = [0] * mesh.size
+
+        def member_of(dev) -> int:
+            handle = torch.cuda.current_stream(dev).cuda_stream
+            for k, (d, stream) in enumerate(zip(mesh.devices, mesh.streams())):
+                if d == dev and (stream is None or stream.cuda_stream == handle):
+                    return k
+            raise AssertionError(f"a launch on {dev} ran on no member's stream")
+
+        def counted(*args):
+            before = counter[key]
+            out = real(*args)
+            if counter[key] > before:
+                counts[member_of(args[0].device)] += counter[key] - before
+            return out
+
+        setattr(module, name, counted)
+        self._restore.append((module, name, real))
+        return counts
+
     def capture(self, owner, name: str, sink: list):
         """Wrap a method so each instance it runs on is appended to sink."""
         real = getattr(owner, name)
@@ -555,12 +617,22 @@ class StageTimers:
         return sum(int(w) for w in self.work.get(name, []))
 
 
-def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernels: set, **kwargs):
+def stage4_orchestrator(
+    phase: int, blobs, expected, n_empty, min_sim, kernels: set, mesh=None,
+    save_db: str | None = None, from_db: str | None = None, **kwargs
+):
     """Stage 4 of a fresh library through deduplicate(skip_hashing=True)
     with the port's orchestrator (kwargs go to its constructor): the marked
     set must be the planted set, every kernel of ``kernels`` must have
     launched and no other search kernel, and no torch.matmul may run inside
-    the bucketed route. Returns the launch counts of every search kernel."""
+    the bucketed route. With ``mesh``, the orchestrator's _device_mesh
+    returns it, and every kernel of ``kernels`` must have launched on every
+    member. ``save_db`` copies the database there once stage 2 and the
+    maintenance are done; ``from_db`` starts from a copy of such a file
+    instead of filling the queue and running stage 2 (phase 11 so reuses
+    the libraries of phases 2 and 9). Returns the launch counts of every
+    search kernel; records the stage-4 seconds in STAGE4_S[(phase,
+    search_prefilter)]."""
     import torch
 
     from hydrus_video_deduplicator_tpu_torch import dedup
@@ -599,33 +671,42 @@ def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernels: 
     with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_") as workdir:
         try:
             DedupeDB.set_db_dir(workdir)
-            DedupeDB.create_db()
+            if from_db:
+                shutil.copyfile(from_db, DedupeDB.get_db_file_path())
+            else:
+                DedupeDB.create_db()
             db = DedupeDB.DedupeDb(DedupeDB.get_db_dir(), DedupeDB.get_db_name())
             db.init_connection()
             client = HVDClient(None, server.url, DEFAULT_ACCESS_KEY, None)
+            t_queue = t_stage2 = t_maint = 0.0
             t0 = time.perf_counter()
-            for i0 in range(0, n_videos, 50_000):
-                db.conn.executemany(
-                    "INSERT OR REPLACE INTO phashed_file_queue (file_hash, phash) VALUES (?, ?)",
-                    [(file_hash(i), blobs[i]) for i in range(i0, min(i0 + 50_000, n_videos))],
-                )
-            db.commit()
-            t_queue = time.perf_counter() - t0
+            if not from_db:
+                for i0 in range(0, n_videos, 50_000):
+                    db.conn.executemany(
+                        "INSERT OR REPLACE INTO phashed_file_queue (file_hash, phash)"
+                        " VALUES (?, ?)",
+                        [(file_hash(i), blobs[i]) for i in range(i0, min(i0 + 50_000, n_videos))],
+                    )
+                db.commit()
+                t_queue = time.perf_counter() - t0
 
             deduper = dedup.HydrusVideoDeduplicator(
                 db, client=client, search_backend="gpu", **kwargs
             )
             deduper.threshold = THRESHOLD
-            t0 = time.perf_counter()
-            db.begin_transaction()
-            with db.conn:
-                deduper.process_phashed_file_queue()
-            t_stage2 = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            db.begin_transaction()
-            with db.conn:
-                deduper.run_maintenance()
-            t_maint = time.perf_counter() - t0
+            if not from_db:
+                t0 = time.perf_counter()
+                db.begin_transaction()
+                with db.conn:
+                    deduper.process_phashed_file_queue()
+                t_stage2 = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                db.begin_transaction()
+                with db.conn:
+                    deduper.run_maintenance()
+                t_maint = time.perf_counter() - t0
+            if save_db:
+                shutil.copyfile(DedupeDB.get_db_file_path(), save_db)
             n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
             assert n_files == n_videos, n_files
 
@@ -641,6 +722,14 @@ def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernels: 
             )
             for name in kernels:
                 timers.wrap_kernel(work[name][0], name, work[name][1])
+            per_member = {}
+            if mesh is not None:
+                timers.patch(dedup.HydrusVideoDeduplicator, "_device_mesh", lambda self: mesh)
+                for name in kernels:
+                    module = work[name][0]
+                    per_member[name] = timers.count_members(
+                        mesh, module, name, module.LAUNCHES, name
+                    )
             matmuls = timers.count_inside(GpuSearchEngine, "_bucket_pair", torch, "matmul")
             for counter in counters:
                 for name in counter:
@@ -651,6 +740,7 @@ def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernels: 
             finally:
                 timers.restore()
             t_search = time.perf_counter() - t0
+            STAGE4_S[(phase, kwargs.get("search_prefilter", "auto"))] = t_search
             launches = {name: n for counter in counters for name, n in counter.items()}
 
             idx = {file_hash(i): i for i in range(n_videos)}
@@ -679,14 +769,21 @@ def stage4_orchestrator(phase: int, blobs, expected, n_empty, min_sim, kernels: 
                 raise AssertionError(f"phase {phase}: other kernels launched: {others}")
             if matmuls[0]:
                 raise AssertionError(f"phase {phase}: the bucketed route ran torch.matmul")
+            for name, counts in sorted(per_member.items()):
+                log(f"phase {phase}   {name} launches per member of {mesh}: {counts}")
+                if not all(counts):
+                    raise AssertionError(f"phase {phase}: {name} never launched on some member")
             t0 = time.perf_counter()
             pairs2 = deduper.deduplicate(skip_hashing=True)
             t_rerun = time.perf_counter() - t0
             if pairs2 != 0:
                 raise AssertionError(f"phase {phase}: re-run marked {pairs2} pairs")
+            before = (
+                f"from {os.path.basename(from_db)}" if from_db else
+                f"queue fill {t_queue:.3f}, stage 2 {t_stage2:.3f}, maintenance {t_maint:.3f}"
+            )
             log(
-                f"phase {phase} stage times (s): queue fill {t_queue:.3f}, stage 2 "
-                f"{t_stage2:.3f}, maintenance {t_maint:.3f}, stage 4 search+mark "
+                f"phase {phase} stage times (s): {before}, stage 4 search+mark "
                 f"{t_search:.3f}, re-run {t_rerun:.3f}"
             )
             for label, sec in timers.seconds.items():
@@ -926,7 +1023,12 @@ def host_frame_split(videos) -> tuple[str, dict[str, float], int]:
     return name, {k: 1e3 * v / max(n, 1) for k, v in ms.items()}, n
 
 
-def phase5_stage1():
+def phase5_stage1(phase: int = 5, n_scenes: int = STAGE1_SCENES, n_sample: int = STAGE1_SAMPLE,
+                  mesh=None):
+    """Stage 1 of n_scenes x 2 MJPG videos through the orchestrator (phase
+    5, and phase 11 with ``mesh``: the orchestrator's _device_mesh returns
+    it and the PDQ kernel must launch on every member). Returns the PDQ
+    kernel's launches."""
     import numpy as np
     import torch
 
@@ -939,11 +1041,11 @@ def phase5_stage1():
     from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
 
     t0 = time.perf_counter()
-    store, label = build_stage1_store()
+    store, label = build_stage1_store(n_scenes)
     mb = sum(map(len, store.values())) / 1e6
-    log(f"phase 5 corpus: {len(store)} MJPG videos ({mb:.1f} MB), "
+    log(f"phase {phase} corpus: {len(store)} MJPG videos ({mb:.1f} MB), "
         f"{time.perf_counter() - t0:.1f} s to build")
-    planted = {(s, s) for s in range(STAGE1_SCENES)}
+    planted = {(s, s) for s in range(n_scenes)}
 
     def marked(server):
         return {tuple(sorted(label[h][0] for h in pair)) for pair in server.relationships}
@@ -988,6 +1090,12 @@ def phase5_stage1():
             timers, hashers = StageTimers(), []
             timers.wrap_kernel(pdq_filter, "pdq_filter_batch")
             timers.capture(GpuVideoHasher, "hash_videos", hashers)
+            per_member = None
+            if mesh is not None:
+                timers.patch(dedup.HydrusVideoDeduplicator, "_device_mesh", lambda self: mesh)
+                per_member = timers.count_members(
+                    mesh, pdq_filter, "pdq_filter_batch", pdq_filter.LAUNCHES, "pdq_filter"
+                )
             for name in seg.LAUNCHES:
                 seg.LAUNCHES[name] = 0
             pdq_filter.LAUNCHES["pdq_filter"] = 0
@@ -1006,14 +1114,15 @@ def phase5_stage1():
             n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
             hs = hashers[0].stats
             sec = stage1["seconds"]
+            STAGE1_S[phase] = sec, hs["frames"]
             log(
-                f"phase 5: stage 1 hashed {stats.success_hash_count} videos, {failed} failed, "
+                f"phase {phase}: stage 1 hashed {stats.success_hash_count} videos, {failed} failed, "
                 f"{hs['frames']} frames in {hs['batches']} device batches; files in the "
                 f"database {n_files}; pdq_filter launches {launches}, similarity_segments "
                 f"launches {sims}, sweep launches {sweeps}"
             )
             log(
-                f"phase 5 stage 1: {sec:.3f} s, {hs['frames'] / sec:.1f} hashed frames/s; "
+                f"phase {phase} stage 1: {sec:.3f} s, {hs['frames'] / sec:.1f} hashed frames/s; "
                 f"kernel device time {timers.kernel_ms('pdq_filter_batch'):.3f} ms over "
                 f"{timers.launches('pdq_filter_batch')} "
                 f"launches; {hs['hash_s']:.3f} s inside the hasher, whose batch loop waited "
@@ -1022,25 +1131,31 @@ def phase5_stage1():
                 f"({100 * hs['device_wait_s'] / sec:.1f} %); whole deduplicate() {t_all:.3f} s"
             )
             if failed or stats.success_hash_count != len(store) or n_files != len(store):
-                raise AssertionError("phase 5: a file failed to hash or was not stored")
+                raise AssertionError(f"phase {phase}: a file failed to hash or was not stored")
             if launches == 0:
-                raise AssertionError("phase 5: the PDQ filter kernel never launched")
+                raise AssertionError(f"phase {phase}: the PDQ filter kernel never launched")
+            if per_member is not None:
+                log(f"phase {phase}   pdq_filter launches per member of {mesh}: {per_member}")
+                if not all(per_member):
+                    raise AssertionError(f"phase {phase}: pdq_filter never launched on some member")
             if sims == 0:
                 raise AssertionError(
-                    "phase 5: the segment similarity kernel never launched (did auto prune?)"
+                    f"phase {phase}: the segment similarity kernel never launched (did auto prune?)"
                 )
 
-            sample = sorted(np.random.default_rng(3).choice(sorted(store), STAGE1_SAMPLE, replace=False))
+            sample = sorted(np.random.default_rng(3).choice(sorted(store), n_sample, replace=False))
             t0 = time.perf_counter()
             with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
                 refs = list(pool.map(lambda h: hashing.compute_phash(store[h], 1).bytes, sample))
             bad = [h for h, ref in zip(sample, refs) if queued[h] != ref]
-            log(f"phase 5: {len(sample)} sampled queued hashes vs compute_phash: {len(bad)} "
+            log(f"phase {phase}: {len(sample)} sampled queued hashes vs compute_phash: {len(bad)} "
                 f"differ ({time.perf_counter() - t0:.1f} s)")
             if bad:
-                raise AssertionError(f"phase 5: {len(bad)} queued hashes differ from compute_phash")
+                raise AssertionError(
+                    f"phase {phase}: {len(bad)} queued hashes differ from compute_phash"
+                )
             backend, split, n_split = host_frame_split([store[h] for h in sample[:50]])
-            log(f"phase 5 host split, one thread, {n_split} frames of {STAGE1_DIM}x{STAGE1_DIM} "
+            log(f"phase {phase} host split, one thread, {n_split} frames of {STAGE1_DIM}x{STAGE1_DIM} "
                 f"MJPG ({backend}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
                 + " per frame")
 
@@ -1058,20 +1173,20 @@ def phase5_stage1():
                 held = "the native-hash run's set"
                 if got != native:
                     raise AssertionError(
-                        f"phase 5: marked {len(got)} pairs; planted {len(planted)}, native "
+                        f"phase {phase}: marked {len(got)} pairs; planted {len(planted)}, native "
                         f"{len(native)}: neither equal"
                     )
-            log(f"phase 5: marked {len(got)} pairs, reported {pairs}; equal to {held} "
+            log(f"phase {phase}: marked {len(got)} pairs, reported {pairs}; equal to {held} "
                 f"(missing from planted {len(planted - got)}, extras {len(got - planted)})")
 
             server.requests_seen.clear()
             t0 = time.perf_counter()
             pairs2 = deduper.deduplicate(skip_hashing=False)
             fetched = server.requests_seen.count("/get_files/file")
-            log(f"phase 5 re-run: {time.perf_counter() - t0:.3f} s, marked {pairs2}, "
+            log(f"phase {phase} re-run: {time.perf_counter() - t0:.3f} s, marked {pairs2}, "
                 f"fetched {fetched} files")
             if pairs2 != 0 or fetched:
-                raise AssertionError("phase 5: the re-run fetched files or marked pairs")
+                raise AssertionError(f"phase {phase}: the re-run fetched files or marked pairs")
         finally:
             server.stop()
             db.close()
@@ -1449,6 +1564,88 @@ def phase10_rerank(device=None) -> None:
             server.stop()
 
 
+def phase11_choose_mesh():
+    """(mesh, how): one member per card where several are visible, else
+    MESH_MEMBERS_ON_ONE_CARD members sharing the one card."""
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.parallel import mesh as mesh_mod
+
+    if torch.cuda.device_count() > 1:
+        return mesh_mod.build_mesh(), "one member per card"
+    members = [torch.device("cuda", 0)] * MESH_MEMBERS_ON_ONE_CARD
+    return mesh_mod.Mesh(members), "members sharing the one card, each on a stream of its own"
+
+
+def mesh_turns() -> None:
+    """Phase 11's mesh against one device in turns (one, mesh, mesh, one),
+    each a fresh run as its phase makes it: stage 4 of phase 2's library
+    (auto) and of phase 9's N_NONE library (none), then stage 1 of phase
+    10's 400 videos. "One device" is a one-member mesh on cuda:0, so the
+    orchestrator's own choice (a mesh over every visible card) is
+    overridden on both sides. Not part of main()."""
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.parallel.mesh import Mesh
+
+    phase0_build()
+    mesh, how = phase11_choose_mesh()
+    one = Mesh([torch.device("cuda", 0)])
+    log(f"turns: {one} against {mesh} ({how}); card: {card_line()}")
+    lib2 = build_library(N_VIDEOS)
+    lib_none = build_library(N_NONE, LONG_CLIP, LONG_PLANTS["none"])
+    order = (("one", one), ("mesh", mesh), ("mesh", mesh), ("one", one))
+    runs = (
+        (lib2, {"exists_mask_sweep"}, "auto"),
+        (lib_none, {"similarity_segments", "similarity_block"}, "none"),
+    )
+    for lib, kernels, prefilter in runs:
+        for label, m in order:
+            stage4_orchestrator(11, *lib, kernels, mesh=m, search_prefilter=prefilter)
+            log(f"turns stage 4 {prefilter} N={len(lib[0])} {label}: "
+                f"{STAGE4_S[(11, prefilter)]:.3f} s")
+    for label, m in order:
+        phase5_stage1(11, RERANK_SCENES, MESH_STAGE1_SAMPLE, mesh=m)
+        sec, frames = STAGE1_S[11]
+        log(f"turns stage 1 {label}: {sec:.3f} s, {frames / sec:.1f} hashed frames/s")
+    log(f"turns done; card: {card_line()}")
+
+
+def phase11_mesh(lib2, lib_none, db2: str, db_none: str) -> None:
+    """The multi-device path: a mesh over every visible card, or
+    MESH_MEMBERS_ON_ONE_CARD members sharing the one card, each on a stream
+    of its own; the dry run on it; phase 2's library pruned (auto) and the
+    long-tail library's N_NONE run (none) through stage 4 on it, each from
+    its phase's database after stage 2 (db2, db_none); and stage 1 of phase
+    10's 400 videos on it."""
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.parallel import dryrun
+    from tests.fake_hydrus import FakeHydrus
+
+    mesh, how = phase11_choose_mesh()
+    log(f"phase 11 mesh: {mesh}, {how}; card: {card_line()}")
+    t0 = time.perf_counter()
+    summary = dryrun.dryrun_multidevice(mesh, FakeHydrus)
+    log(f"phase 11 dry run: {time.perf_counter() - t0:.3f} s, every stage equal to one device: "
+        f"{summary}")
+    # phases 2 and 9 ran with the orchestrator's own choice: one device
+    # where one card is visible, else a mesh over all of them
+    default = f"the orchestrator's default over {torch.cuda.device_count()} visible card(s)"
+    stage4_orchestrator(
+        11, *lib2, {"exists_mask_sweep"}, mesh=mesh, from_db=db2, search_prefilter="auto"
+    )
+    log(f"phase 11 stage 4, pruned, N={len(lib2[0])}: {STAGE4_S[(11, 'auto')]:.3f} s on {mesh}, "
+        f"phase 2 {STAGE4_S[(2, 'auto')]:.3f} s on {default}; card: {card_line()}")
+    stage4_orchestrator(
+        11, *lib_none, {"similarity_segments", "similarity_block"}, mesh=mesh, from_db=db_none,
+        search_prefilter="none",
+    )
+    log(f"phase 11 stage 4, none, N={len(lib_none[0])}: {STAGE4_S[(11, 'none')]:.3f} s on {mesh}, "
+        f"phase 9 {STAGE4_S[(9, 'none')]:.3f} s on {default}; card: {card_line()}")
+    phase5_stage1(11, RERANK_SCENES, MESH_STAGE1_SAMPLE, mesh=mesh)
+
+
 def main() -> int:
     import torch
 
@@ -1459,19 +1656,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     phase0_build()
-    blobs, expected, n_empty, min_sim = build_library(N_VIDEOS)
-    timing = phase1_kernel_vs_plain(blobs, dev)
+    # phase 11 starts from the databases of phase 2 and phase 9's "none" run
+    kept = tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_db_")
+    db2, db_none = (os.path.join(kept.name, f"{name}.sqlite") for name in ("phase2", "phase9_none"))
+    lib2 = build_library(N_VIDEOS)
+    timing = phase1_kernel_vs_plain(lib2[0], dev)
     sweep_launches = stage4_orchestrator(
-        2, blobs, expected, n_empty, min_sim, {"exists_mask_sweep"}
+        2, *lib2, {"exists_mask_sweep"}, save_db=db2
     )["exists_mask_sweep"]
     phase3_cli()
     pdq_timing = phase4_pdq_kernel_vs_plain(dev)
     pdq_launches = phase5_stage1()
-    seg_timing = phase6_similarity_vs_plain(blobs, dev)
-    seg_launches = stage4_orchestrator(
-        7, blobs, expected, n_empty, min_sim, {"similarity_segments"}, search_prefilter="none"
-    )
-    del blobs
+    seg_timing = phase6_similarity_vs_plain(lib2[0], dev)
+    seg_launches = stage4_orchestrator(7, *lib2, {"similarity_segments"}, search_prefilter="none")
     blobs, expected, n_empty, min_sim = build_library(N_VIDEOS, LONG_CLIP, LONG_PLANTS["auto"])
     block_timing = phase8_block_vs_plain(blobs, dev)
     block_launches = stage4_orchestrator(
@@ -1479,14 +1676,15 @@ def main() -> int:
         search_prefilter="auto",
     )["similarity_block"]
     del blobs
-    blobs, expected, n_empty, min_sim = build_library(N_NONE, LONG_CLIP, LONG_PLANTS["none"])
+    lib_none = build_library(N_NONE, LONG_CLIP, LONG_PLANTS["none"])
     stage4_orchestrator(
-        9, blobs, expected, n_empty, min_sim, {"similarity_segments", "similarity_block"},
+        9, *lib_none, {"similarity_segments", "similarity_block"}, save_db=db_none,
         search_prefilter="none",
     )
-    del blobs
     phase10_tower(dev)
     traced(phase10_rerank)
+    phase11_mesh(lib2, lib_none, db2, db_none)
+    kept.cleanup()
     reference = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "hydrus_video_deduplicator_tpu")

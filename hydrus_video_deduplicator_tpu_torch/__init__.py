@@ -3,7 +3,7 @@
 The JAX package ``hydrus_video_deduplicator_tpu`` is the reference. This
 package keeps its module layout so each counterpart is easy to find, and
 runs stage 1, perceptual hashing, stage 4, the exact all-pairs search, and
-the embedding rerank on an NVIDIA GPU:
+the embedding rerank on an NVIDIA GPU, or sharded over several:
 
 - ``models.pdq``              — the plain PyTorch PDQ pipeline, bit-exact to
                                 the numpy oracle.
@@ -20,6 +20,10 @@ the embedding rerank on an NVIDIA GPU:
 - ``ops.pair_verify``         — exact similarity of candidate pairs.
 - ``parallel.engine``         — ``GpuSearchEngine``, the pruned and the
                                 unpruned search.
+- ``parallel.mesh``           — device meshes: the hasher and the engine
+                                shard their rows over the members;
+                                ``parallel.dryrun`` checks every stage on
+                                a mesh against one device.
 - ``models.embed``            — the vision tower of the embedding rerank
                                 (a ViT in float32 torch ops), with
                                 ``models.convert_clip`` (CLIP checkpoints)

@@ -50,6 +50,7 @@ from .models.vpdq import GpuVideoHasher
 from .ops import reps as reps_mod
 from .ops import similarity_segments as seg
 from .page_logger import HydrusPageLogger
+from .parallel import mesh as mesh_mod
 from .parallel.engine import GpuSearchEngine, blob_frame_counts, iter_blob_items
 
 if TYPE_CHECKING:
@@ -294,6 +295,17 @@ class HydrusVideoDeduplicator:
                 f" {self.reranker.pairs_checked} candidate pairs rejected by"
                 f" the embedding gate."
             )
+
+    def _device_mesh(self) -> "mesh_mod.Mesh | None":
+        """Mesh over every visible CUDA device when no device was named and
+        more than one is visible, else None (counterpart of the JAX
+        package's ``_device_mesh``). Stage 1's hasher and stage 4's engine
+        shard their leading batch axis over it; the rerank tower stays on
+        one device. A named device, "cpu" or "cuda:1", means that device
+        alone."""
+        if self.device is not None or torch.cuda.device_count() <= 1:
+            return None
+        return mesh_mod.build_mesh()
 
     # -- stage 0: discovery ------------------------------------------------
 
@@ -563,7 +575,8 @@ class HydrusVideoDeduplicator:
         native path's failure, stat and commit semantics."""
         stats = PerceptualHashingStats()
         hasher = GpuVideoHasher(
-            decode_workers=self.job_count, sampling=self.sampling, device=self.device
+            decode_workers=self.job_count, sampling=self.sampling, device=self.device,
+            mesh=self._device_mesh(),
         )
 
         def fetch_chunk(chunk) -> list[tuple[str, bytes]]:
@@ -953,7 +966,7 @@ class HydrusVideoDeduplicator:
             self.update_progress_callback(
                 SearchingForDuplicatesProgress(complete=0, total=len(row_ids))
             )
-        engine = GpuSearchEngine(device=self.device)
+        engine = GpuSearchEngine(device=self.device, mesh=self._device_mesh())
 
         # Checkpointed sweep: after each chunk its pairs are marked in Hydrus
         # and its search-cache entries committed, so an interrupt loses at

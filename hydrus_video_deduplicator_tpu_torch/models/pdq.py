@@ -29,10 +29,11 @@ _QS = float(pm.QUALITY_SCALE)  # an f32 value; multiplying an f32 tensor keeps f
 _BIT_WEIGHTS = torch.tensor([1 << j for j in range(pm.DCT_DIM)], dtype=torch.int32)  # [16]
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def _constants(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reciprocal table, the DCT matrix and the packing bit weights on
-    ``device``, copied once (a per-batch copy would block the host)."""
+    ``device``, copied once (a per-batch copy would block the host); one
+    entry per device, kept for the process (devices are few)."""
     return _RECIPS.to(device), _DCT.to(device), _BIT_WEIGHTS.to(device)
 
 

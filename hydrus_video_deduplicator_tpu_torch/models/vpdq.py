@@ -14,6 +14,11 @@ the stream behind one event, and the host waits on batch N-1's event only
 after it has queued batch N. A video that fails to
 decode yields a typed failure and never poisons a batch. The kernel takes
 runtime sizes, so a partial flush goes to the device at its real size.
+
+Over a mesh (``parallel.mesh``) each batch splits into one contiguous slab
+per member, as the JAX hasher shards its batch axis: each slab is copied
+from its slice of the pinned buffer to its member's device, hashed there on
+the member's stream and copied back behind one event per member.
 """
 
 from __future__ import annotations
@@ -29,9 +34,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..decode import extract_frames
 from ..ops.pdq_filter import pdq_hash_batch_fused
+from ..parallel.mesh import Mesh, resolve_mesh, row_slabs
 from ..vpdq import VpdqHash
 from ..vpdq import pdq_math as pm
 from .pdq import words_to_blobs
@@ -61,7 +66,7 @@ class VideoResult:
 
 
 class GpuVideoHasher:
-    """Batched hashing of many videos on one device.
+    """Batched hashing of many videos on one device or over a mesh.
 
     Usage: ``results = GpuVideoHasher().hash_videos(items)`` where items
     yields (key, video_bytes_or_path); results keep the input order.
@@ -77,21 +82,26 @@ class GpuVideoHasher:
         quality_min: int = pm.QUALITY_MIN_KEEP,
         sampling: str = "uniform",
         device: "str | torch.device | None" = None,
+        mesh: Mesh | None = None,
     ):
         """decode_workers follows the reference's job-count convention:
         n > 0 explicit, 0 or None -> DECODE_WORKERS, negative -> cores + 1
         + n (so -1 = all cores, -2 = all but one).
 
         device: None is CUDA, and raises without it; "cpu" runs the plain
-        PyTorch filter (the tests)."""
+        PyTorch filter (the tests). mesh (exclusive with device): each
+        batch is sharded over its members, and batch_size rounds up to a
+        multiple of the mesh size."""
         if decode_workers is None or decode_workers == 0:
             decode_workers = DECODE_WORKERS
         elif decode_workers < 0:
             decode_workers = max(1, (os.cpu_count() or 2) + 1 + decode_workers)
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(device, mesh)
+        self.device = self.mesh.devices[0]
         if batch_size is None:
             batch_size = BATCH if self.device.type == "cuda" else BATCH_CPU
-        self.batch_size = batch_size
+        n = self.mesh.size
+        self.batch_size = -(-batch_size // n) * n
         self.decode_workers = decode_workers
         self.quality_min = quality_min
         self.sampling = sampling
@@ -192,8 +202,8 @@ class GpuVideoHasher:
         def drain_one():
             words, qual, done, batch_owners = inflight.popleft()
             t0 = time.perf_counter()
-            if done is not None:
-                done.synchronize()  # this batch only; the next stays queued
+            for event in done:
+                event.synchronize()  # this batch only; the next stays queued
             self.stats["device_wait_s"] += time.perf_counter() - t0
             words, qual = words.numpy(), qual.numpy()
             for (owner, frame_no), blob, q in zip(batch_owners, words_to_blobs(words), qual):
@@ -204,13 +214,24 @@ class GpuVideoHasher:
             if fill == 0:
                 return
             frames, words, qual = (t[:fill] for t in staging[cur])
-            words_dev, qual_dev = pdq_hash_batch_fused(frames.to(self.device, non_blocking=True))
-            words.copy_(words_dev, non_blocking=True)
-            qual.copy_(qual_dev, non_blocking=True)
-            done = None
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+            # a partial flush splits at its real size: the kernel takes
+            # runtime sizes, so the JAX hasher's padding of a flush to a
+            # mesh multiple (its _pad_target) has no counterpart here
+            done = []
+            for k, (s0, s1) in enumerate(row_slabs(fill, self.mesh)):
+                if s0 == s1:
+                    continue
+                dev = self.mesh.devices[k]
+                with self.mesh.member(k):
+                    words_dev, qual_dev = pdq_hash_batch_fused(
+                        frames[s0:s1].to(dev, non_blocking=True)
+                    )
+                    words[s0:s1].copy_(words_dev, non_blocking=True)
+                    qual[s0:s1].copy_(qual_dev, non_blocking=True)
+                    if dev.type == "cuda":
+                        event = torch.cuda.Event()
+                        event.record(torch.cuda.current_stream(dev))
+                        done.append(event)
             inflight.append((words, qual, done, owners))
             self.stats["frames"] += fill
             self.stats["batches"] += 1

@@ -127,6 +127,16 @@ def library_path(name: str) -> Path:
     return so
 
 
+def check_same_device(out, **inputs) -> None:
+    """Raise ValueError, before a launch, for any input tensor (by keyword
+    name) on another device than the launch's output ``out``: the C
+    interfaces take raw pointers, and ``ctypes`` would pass one from
+    another card unchecked."""
+    for name, t in inputs.items():
+        if t.device != out.device:
+            raise ValueError(f"{name} is on {t.device}, the output on {out.device}")
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, with every C signature declared."""

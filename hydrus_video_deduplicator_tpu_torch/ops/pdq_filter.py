@@ -63,8 +63,9 @@ def pdq_filter_batch(frames_planar_u8: torch.Tensor) -> torch.Tensor:
         return out
     from . import _build
 
-    lib = _build.load_library("pdq_filter")
     recips = mpdq._constants(frames_planar_u8.device)[0]  # box_recips(512)
+    _build.check_same_device(out, frames=frames_planar_u8, recips=recips)
+    lib = _build.load_library("pdq_filter")
     with torch.cuda.device(frames_planar_u8.device):
         stream = torch.cuda.current_stream(frames_planar_u8.device).cuda_stream
         err = lib.hvd_pdq_filter(

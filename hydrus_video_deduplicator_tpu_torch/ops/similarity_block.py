@@ -100,6 +100,10 @@ def _launch(rows_words, rows_counts, cols_words, cols_counts, pa: int, pb: int):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty((tr, tc), dtype=torch.int32, device=rows_words.device)
+    _build.check_same_device(
+        out, rows_words=rows_words, rows_counts=rows_counts, cols_words=cols_words,
+        cols_counts=cols_counts,
+    )
     lib = _build.load_library("similarity_block")
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream

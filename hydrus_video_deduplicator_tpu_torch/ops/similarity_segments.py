@@ -39,6 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import _build
 from . import similarity as ops_sim
 from .similarity import BITS, LANES, TOL, unpack_pm1, unpack_pm1_host
 
@@ -399,8 +400,6 @@ def _launch(name: str, library: str, fn: str, out: torch.Tensor, *args):
     """Call C function ``fn`` of kernel library ``library`` with ``args``
     and the current stream of ``out``'s device; raise on a CUDA error,
     else count one launch of ``name``."""
-    from . import _build
-
     lib = _build.load_library(library)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -425,6 +424,9 @@ def _sweep(name, a_words, slot_a, b_words, slot_b, valid, tolerance):
     _check_cuda(a_words, b_words)
     out = torch.empty(
         (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device
+    )
+    _build.check_same_device(
+        out, a_words=a_words, slot_a=slot_a, b_words=b_words, slot_b=slot_b, valid=valid
     )
     return _launch(
         name, "exists_mask_sweep", "hvd_exists_mask_sweep", out,
@@ -474,6 +476,10 @@ def _segments(
     _check_cuda(a_words, b_words)
     rows = n_row_blocks * (MASK_WORDS if mode == _MASK else ROW_SLOTS)
     out = torch.empty((rows, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device)
+    counts = {} if counts_a is None else {"counts_a": counts_a, "counts_b": counts_b}
+    _build.check_same_device(
+        out, a_words=a_words, slot_a=slot_a, b_words=b_words, slot_b=slot_b, valid=valid, **counts
+    )
     return _launch(
         name, "similarity_segments", "hvd_similarity_segments", out,
         a_words.data_ptr(), slot_a.data_ptr(),

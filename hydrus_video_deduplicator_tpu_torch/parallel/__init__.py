@@ -1,3 +1,4 @@
-"""The port's search engine (counterpart of the JAX package's ``parallel``)."""
+"""The port's search engine, its device meshes and the multi-device dry
+run (counterpart of the JAX package's ``parallel``)."""
 
 from .engine import CorpusIndex, GpuSearchEngine  # noqa: F401

@@ -30,6 +30,9 @@ hand-written CUDA kernel; its plain version on the CPU), hits found on the
 device. Longer videos are compared exactly on the host. The pruned search
 reaches those two routes through ``find_pairs`` for its long-video
 complements.
+
+Over a mesh (``parallel.mesh``) both device routes shard their row tiles
+over the members, with the columns replicated to every device.
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..ops import pair_verify
 from ..ops import reps as reps_mod
 from ..ops import similarity as ops_sim
@@ -50,6 +52,7 @@ from ..ops import similarity_block as sb
 from ..ops import similarity_segments as seg
 from ..ops.similarity import BYTES, LANES, TOL
 from ..vpdq import matchHashBytes
+from .mesh import Mesh, replicate, resolve_mesh, row_slabs
 
 #: videos longer than this many frames skip the bucketed device path and
 #: are compared exactly on the host (native matchHashBytes)
@@ -213,8 +216,19 @@ def decode_mask_hits(word_rows: np.ndarray, cols: np.ndarray, words: np.ndarray)
 
 class GpuSearchEngine:
     """Exact all-pairs similarity search over packed VPDQ hashes on one
-    device. ``device`` defaults to CUDA and raises without it; tests pass
-    ``device="cpu"`` to run every kernel's plain PyTorch version."""
+    device or over a mesh. ``device`` defaults to CUDA and raises without
+    it; tests pass ``device="cpu"`` to run every kernel's plain PyTorch
+    version.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``, exclusive with ``device``) shards
+    the row side of every device launch over its members, as the JAX
+    engine's shard_map wrappers do: each row tile splits into one slab per
+    member (``row_slabs``), launched under that member's device and stream
+    against the columns replicated to its device, and the slabs' hits are
+    gathered by row offset. Without one, the engine is a mesh of its one
+    device. Stage B (``verify_pairs``) runs on the first member, and the
+    longest videos on the host.
+    """
 
     #: fraction of the free device memory a launch's output may use: a row
     #: tile's sweep masks (a row block's mask is 8 words x 256 slots x 4
@@ -226,8 +240,9 @@ class GpuSearchEngine:
     #: column steps staged per host->device copy of the column corpus
     COL_FILL_STEPS = 64
 
-    def __init__(self, device: "str | torch.device | None" = None):
-        self.device = resolve_device(device)
+    def __init__(self, device: "str | torch.device | None" = None, mesh: Mesh | None = None):
+        self.mesh = resolve_mesh(device, mesh)
+        self.device = self.mesh.devices[0]
         self._progress_cb = None
         self._progress_done = 0
         self._progress_total = 0
@@ -285,10 +300,10 @@ class GpuSearchEngine:
             if cols_dev is None:
                 cols_dev = state["seg_cols"] = self._stage_columns(seg_columns(cols))
 
-            def launch(a_words, slot_a, counts_a, valid):
+            def launch(cols, a_words, slot_a, counts_a, valid):
+                words, slots, counts = cols
                 return seg.similarity_segments(
-                    a_words, slot_a, counts_a, cols_dev["words"], cols_dev["slots"],
-                    cols_dev["counts"], valid, min_int_similarity,
+                    a_words, slot_a, counts_a, words, slots, counts, valid, min_int_similarity
                 )
 
             hits = self._segment_route(seg_rows, cols_dev, col_limit, launch)
@@ -326,10 +341,13 @@ class GpuSearchEngine:
     ):
         """Hits of one bucket pair: each row tile is one ``similarity_block``
         launch against the whole column bucket, with ``sim >= min_sim``
-        found on the device. A bucket's columns are staged once per sweep;
-        under col_limit a launch takes only the columns below it (c_idx
-        ascends). Row tiles are as many videos as the int32 block's memory
-        budget allows."""
+        found on the device. A bucket's columns are staged once per sweep,
+        on every device of the mesh; under col_limit a launch takes only the
+        columns below it (c_idx ascends). A row tile holds as many videos as
+        the int32 block's memory budget allows on each member, times the
+        mesh size; it splits into one slab per member, and every slab is
+        launched before any is gathered. The kernel takes runtime sizes, so
+        the last tile splits at its real size."""
         n_live = len(c_idx)
         if col_limit is not None:
             n_live = int(np.searchsorted(c_idx, col_limit))
@@ -339,28 +357,41 @@ class GpuSearchEngine:
         if staged is None:
             # device columns depend only on pb: staged once per sweep
             staged = col_tiles[pb] = (
-                ops_sim.to_words(c_frames, self.device),
-                torch.from_numpy(c_counts).to(self.device),
+                replicate(ops_sim.to_words(c_frames, self.device), self.mesh),
+                replicate(torch.from_numpy(c_counts).to(self.device), self.mesh),
             )
-        cf, cc = staged[0][:n_live], staged[1][:n_live]
-        tr = max(1, min(len(r_idx), self._output_budget() // (4 * n_live)))
+        n = self.mesh.size
+        per_member = max(1, min(-(-len(r_idx) // n), self._output_budget() // (4 * n_live)))
+        tr = per_member * n
         out = []
         for i0 in range(0, len(r_idx), tr):
-            rf = ops_sim.to_words(r_frames[i0 : i0 + tr], self.device)
-            rc = torch.from_numpy(r_counts[i0 : i0 + tr]).to(self.device)
-            sim = sb.similarity_block(rf, rc, cf, cc, pa, pb)
-            hits = torch.nonzero(sim >= min_sim).cpu().numpy()
-            if len(hits):
-                sims = sim[hits[:, 0], hits[:, 1]].cpu().numpy()
-                out.extend(
-                    zip(
-                        r_idx[i0 + hits[:, 0]].tolist(),
-                        c_idx[hits[:, 1]].tolist(),
-                        sims.tolist(),
+            n_rows = min(tr, len(r_idx) - i0)
+            sims = []
+            for k, (s0, s1) in enumerate(row_slabs(n_rows, self.mesh)):
+                if s0 == s1:
+                    continue
+                dev = self.mesh.devices[k]
+                with self.mesh.member(k):
+                    rf = ops_sim.to_words(r_frames[i0 + s0 : i0 + s1], dev)
+                    rc = torch.from_numpy(r_counts[i0 + s0 : i0 + s1]).to(dev)
+                    sim = sb.similarity_block(
+                        rf, rc, staged[0][dev][:n_live], staged[1][dev][:n_live], pa, pb
                     )
-                )
+                sims.append((k, i0 + s0, sim))
+            for k, r0, sim in sims:
+                with self.mesh.member(k):
+                    hits = torch.nonzero(sim >= min_sim).cpu().numpy()
+                    if len(hits):
+                        vals = sim[hits[:, 0], hits[:, 1]].cpu().numpy()
+                        out.extend(
+                            zip(
+                                r_idx[r0 + hits[:, 0]].tolist(),
+                                c_idx[hits[:, 1]].tolist(),
+                                vals.tolist(),
+                            )
+                        )
             if self._progress_cb is not None:
-                self._progress_done += len(rf) * n_live
+                self._progress_done += n_rows * n_live
                 self._progress_cb(self._progress_done, self._progress_total)
         return out
 
@@ -499,10 +530,9 @@ class GpuSearchEngine:
                 )
             tolerance = reps_mod.prune_tolerance(radius_cap)
 
-            def launch(a_words, slot_a, _counts_a, valid):
-                return seg.exists_mask_sweep(
-                    a_words, slot_a, cols_dev["words"], cols_dev["slots"], valid, tolerance
-                )
+            def launch(cols, a_words, slot_a, _counts_a, valid):
+                words, slots, _counts = cols
+                return seg.exists_mask_sweep(a_words, slot_a, words, slots, valid, tolerance)
 
             candidates = self._segment_route(seg_rows, cols_dev, col_limit, launch)
 
@@ -566,9 +596,10 @@ class GpuSearchEngine:
         at a time so host memory stays bounded. Returns the device words
         [n_steps*STEP_FRAMES, 8] int32, slot ids [n_steps*STEP_FRAMES]
         int32 (-1 padding) and per-slot frame counts ``counts``
-        [n_steps*STEP_SLOTS] int32 (0 empty), and the host map from flat
-        column slot to corpus index ``smaps`` [n_steps*STEP_SLOTS] int64
-        (-1 empty)."""
+        [n_steps*STEP_SLOTS] int32 (0 empty), those three again under
+        ``on`` for every device of the mesh (``replicate``), and the host
+        map from flat column slot to corpus index ``smaps``
+        [n_steps*STEP_SLOTS] int64 (-1 empty)."""
         counts = seg_cols.counts
         chunk_id, slot_id, _frame_off, n_chunks = seg.plan_chunks(
             counts, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS
@@ -610,35 +641,50 @@ class GpuSearchEngine:
             )
             buf_s[f0 - g0 : f0 - g0 + n] = np.repeat(slot_id[ks], counts[ks])
         flush()
+        slot_counts = torch.from_numpy(slot_counts).to(self.device)
+        copies = [replicate(t, self.mesh) for t in (words, slots, slot_counts)]
         return {
             "words": words,
             "slots": slots,
-            "counts": torch.from_numpy(slot_counts).to(self.device),
+            "counts": slot_counts,
+            # the three column tensors on every device of the mesh
+            "on": {dev: tuple(c[dev] for c in copies) for dev in self.mesh.distinct_devices},
             "smaps": smaps,
             "n_steps": n_steps,
         }
 
     def _output_budget(self) -> int:
-        """Bytes a launch's output may take on this engine's device."""
-        if self.device.type == "cuda":
-            free, _total = torch.cuda.mem_get_info(self.device)
-            return int(free * self.MASK_MEMORY_FRACTION)
-        return self.CPU_MASK_BUDGET_BYTES
+        """Bytes a launch's output may take on one member: the smallest
+        over the mesh's devices of a device's budget divided among the
+        members that share it."""
+        budgets = []
+        for dev in self.mesh.distinct_devices:
+            budget = self.CPU_MASK_BUDGET_BYTES
+            if dev.type == "cuda":
+                free, _total = torch.cuda.mem_get_info(dev)
+                budget = int(free * self.MASK_MEMORY_FRACTION)
+            budgets.append(budget // self.mesh.sharing(dev))
+        return min(budgets)
 
     def _row_blocks_per_tile(self, n_row_blocks: int, n_steps: int) -> int:
-        """Row blocks per sweep launch, from the memory its masks take."""
+        """Row blocks per sweep launch on one member, from the memory its
+        masks take."""
         mask_bytes = seg.MASK_WORDS * n_steps * seg.STEP_SLOTS * 4
         return max(1, min(n_row_blocks, 65535, self._output_budget() // mask_bytes))
 
     def _segment_route(self, seg_rows, cols_dev, col_limit, launch):
         """Hit (row, col) corpus pairs of seg_rows against staged columns.
 
-        Each row tile is one ``launch(a_words, slot_a, counts_a, valid)``
-        of a mask kernel against the whole column corpus (the sweep for
-        stage A, the similarity kernel for the unpruned search); per-step
-        validity skips steps holding no column below col_limit. The next
-        tile is launched before the previous one drains, so the device
-        works while the host decodes.
+        Each row tile's blocks round up to a multiple of the mesh size
+        (padding blocks hold only slot id -1, which never matches) and
+        split into one slab per member; each slab is one ``launch(cols,
+        a_words, slot_a, counts_a, valid)`` of a mask kernel on its member
+        against the whole column corpus on that member's device (the sweep
+        for stage A, the similarity kernel for the unpruned search);
+        per-step validity skips steps holding no column below col_limit.
+        The next tile is launched on every member before the previous one
+        drains, so the devices work while the host decodes. Every launch
+        is drained (a host wait on its stream) before the route returns.
         """
         smaps = cols_dev["smaps"]
         n_steps = cols_dev["n_steps"]
@@ -646,44 +692,63 @@ class GpuSearchEngine:
         if col_limit is not None:
             live &= smaps.reshape(n_steps, seg.STEP_SLOTS) < col_limit
         total_cols = int(live.sum())
-        valid = torch.from_numpy(live.any(axis=1).astype(np.int32)).to(self.device)
+        valid = replicate(
+            torch.from_numpy(live.any(axis=1).astype(np.int32)).to(self.device), self.mesh
+        )
 
         row_blocks = seg.pack_blocks(seg_rows, seg.ROW_FRAMES, seg.ROW_SLOTS)
-        per_tile = self._row_blocks_per_tile(len(row_blocks), n_steps)
+        n = self.mesh.size
+        per_tile = n * self._row_blocks_per_tile(-(-len(row_blocks) // n), n_steps)
         out: list[tuple[int, int]] = []
         pending = None
         for i0 in range(0, len(row_blocks), per_tile):
             group = row_blocks[i0 : i0 + per_tile]
+            n_blocks = -(-len(group) // n) * n
             packed, slot_ids, cnt, rmap = seg.stack_blocks(
-                group, len(group), seg.ROW_FRAMES, seg.ROW_SLOTS
+                group, n_blocks, seg.ROW_FRAMES, seg.ROW_SLOTS
             )
-            masks = launch(
-                ops_sim.to_words(packed, self.device),
-                torch.from_numpy(slot_ids).to(self.device),
-                torch.from_numpy(cnt.reshape(-1)).to(self.device),
-                valid,
-            )
+            cnt = cnt.reshape(-1)
+            slabs = []
+            for k, (b0, b1) in enumerate(row_slabs(n_blocks, self.mesh)):
+                dev = self.mesh.devices[k]
+                fs = slice(b0 * seg.ROW_FRAMES, b1 * seg.ROW_FRAMES)
+                ss = slice(b0 * seg.ROW_SLOTS, b1 * seg.ROW_SLOTS)
+                with self.mesh.member(k):
+                    masks = launch(
+                        cols_dev["on"][dev],
+                        ops_sim.to_words(packed[fs], dev),
+                        torch.from_numpy(slot_ids[fs]).to(dev),
+                        torch.from_numpy(cnt[ss]).to(dev),
+                        valid[dev],
+                    )
+                slabs.append((k, rmap[ss], masks))
             if pending is not None:
-                self._drain(*pending, smaps, col_limit, total_cols, out)
-            pending = (rmap, masks)
+                self._drain(pending, smaps, col_limit, total_cols, out)
+            pending = slabs
         if pending is not None:
-            self._drain(*pending, smaps, col_limit, total_cols, out)
+            self._drain(pending, smaps, col_limit, total_cols, out)
         return out
 
-    def _drain(self, rmap, masks, smaps, col_limit, total_cols, out):
-        """Candidate pairs from one tile's masks: nonzero words found on the
-        device, their bits decoded on the host."""
-        nz = torch.nonzero(masks)
-        if len(nz):
-            vals = masks[nz[:, 0], nz[:, 1]].cpu().numpy()
-            nz = nz.cpu().numpy()
-            rows_l, cols_l = decode_mask_hits(nz[:, 0], nz[:, 1], vals)
-            ia = rmap[rows_l]
-            ib = smaps[cols_l]
-            keep = (ia >= 0) & (ib >= 0)
-            if col_limit is not None:
-                keep &= ib < col_limit
-            out.extend(zip(ia[keep].tolist(), ib[keep].tolist()))
+    def _drain(self, slabs, smaps, col_limit, total_cols, out):
+        """Candidate pairs from one tile's masks, slab by slab: nonzero
+        words found on the slab's member, their bits decoded on the host,
+        and a slab's mask row r mapped through its slice of the tile's
+        rmap."""
+        n_rows = 0
+        for k, rmap, masks in slabs:
+            with self.mesh.member(k):
+                nz = torch.nonzero(masks)
+                if len(nz):
+                    vals = masks[nz[:, 0], nz[:, 1]].cpu().numpy()
+                    nz = nz.cpu().numpy()
+                    rows_l, cols_l = decode_mask_hits(nz[:, 0], nz[:, 1], vals)
+                    ia = rmap[rows_l]
+                    ib = smaps[cols_l]
+                    keep = (ia >= 0) & (ib >= 0)
+                    if col_limit is not None:
+                        keep &= ib < col_limit
+                    out.extend(zip(ia[keep].tolist(), ib[keep].tolist()))
+            n_rows += int((rmap >= 0).sum())
         if self._progress_cb is not None:
-            self._progress_done += int((rmap >= 0).sum()) * total_cols
+            self._progress_done += n_rows * total_cols
             self._progress_cb(self._progress_done, self._progress_total)

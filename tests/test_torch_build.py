@@ -1,17 +1,80 @@
 """The kernel build: one library per ``csrc/*.cu``, keyed on its source,
 the ``csrc`` headers it includes and its flags, built by ``nvcc`` (a
 stand-in script here: this machine has no CUDA toolkit) and moved into
-place atomically."""
+place atomically; and the JAX package's native libraries, built once
+before its test modules load them."""
 
 from __future__ import annotations
 
+import fcntl
 import os
+import shutil
 import stat
+import subprocess
 import sys
+import tempfile
+from pathlib import Path
 
 import pytest
 
 from hydrus_video_deduplicator_tpu_torch.ops import _build
+
+JAX_NATIVE = Path(__file__).resolve().parents[1] / "hydrus_video_deduplicator_tpu" / "native"
+JAX_NATIVE_TARGETS = ((), ("decode",))
+
+
+def _build_jax_native() -> dict[str, str]:
+    """Run the JAX package's ``make -s`` and ``make -s decode`` under one
+    file lock: {target: "" on success, else what went wrong}.
+
+    pytest collects this module before ``tests/unit_tests`` (entries in
+    name order), and each xdist worker collects every module, so this runs
+    in every worker before any of them imports that package's native
+    loaders. Those run ``make`` at import and write the library in place;
+    a worker that loaded a half-written one skipped its module's native
+    tests. Under the lock the first worker builds and the others find the
+    libraries up to date. A failure is kept for the test below, not raised
+    here."""
+    results = {}
+    with open(Path(tempfile.gettempdir()) / "hvd_jax_native_build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for target in JAX_NATIVE_TARGETS:
+            name = " ".join(("make", "-s", *target))
+            try:
+                proc = subprocess.run(
+                    ["make", "-s", *target], cwd=JAX_NATIVE, capture_output=True, text=True,
+                    timeout=300,
+                )
+                results[name] = "" if proc.returncode == 0 else proc.stdout + proc.stderr
+            except (OSError, subprocess.TimeoutExpired) as exc:
+                results[name] = repr(exc)
+    return results
+
+
+_JAX_NATIVE_BUILD = _build_jax_native()
+
+
+def _ffmpeg_dev_libraries() -> bool:
+    """Whether pkg-config finds the FFmpeg libraries the decoder links."""
+    if shutil.which("pkg-config") is None:
+        return False
+    libs = ["libavformat", "libavcodec", "libswscale", "libavutil"]
+    return subprocess.run(["pkg-config", "--exists", *libs]).returncode == 0
+
+
+def test_the_jax_native_libraries_build_before_their_tests_load_them():
+    """Every worker's locked build before collection leaves the JAX
+    package's native hasher loadable (its three native-gated test modules
+    then run instead of skipping), and its libav decoder too where g++ and
+    the FFmpeg libraries are there."""
+    from hydrus_video_deduplicator_tpu import native
+    from hydrus_video_deduplicator_tpu.native import decode
+
+    assert _JAX_NATIVE_BUILD["make -s"] == "", _JAX_NATIVE_BUILD
+    assert native.is_available()
+    if shutil.which("g++") and _ffmpeg_dev_libraries():
+        assert _JAX_NATIVE_BUILD["make -s decode"] == "", _JAX_NATIVE_BUILD
+        assert decode.is_available()
 
 FAKE_NVCC = """#!{python}
 import sys

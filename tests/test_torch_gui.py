@@ -185,7 +185,11 @@ def test_dedupe_params_reach_orchestrator(gui_module, monkeypatch):
         threshold = 75.0
 
     monkeypatch.setattr(gui_module, "HydrusVideoDeduplicator", FakeDeduper)
-    monkeypatch.delenv("HVD_DECODE_BACKEND", raising=False)
+    # the worker sets the variable itself: setenv first, so that teardown
+    # restores its state from before the test and no later test in this
+    # process decodes with the legacy backend
+    monkeypatch.setenv("HVD_DECODE_BACKEND", "auto")
+    monkeypatch.delenv("HVD_DECODE_BACKEND")
     worker = gui_module.Worker()
     worker.client = object()
     worker.db = object()

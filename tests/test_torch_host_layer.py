@@ -194,6 +194,7 @@ COPIES = {
         (r"python -m hydrus_video_deduplicator_tpu\.models", "python -m hydrus_video_deduplicator_tpu_torch.models"),
     ],
     "gui/__init__.py": [],
+    "typing_utils.py": [],
     "gui/gui.py": [
         (r"reference \(/\S+/reference/src/\n", "reference (upstream\nsrc/"),
         (r"Deduplicator TPU \{", "Deduplicator (PyTorch/CUDA port) {"),
@@ -219,8 +220,9 @@ COPIES = {
 
 @pytest.mark.parametrize("name", sorted(COPIES))
 def test_copied_file_differs_from_its_original_only_as_listed(name):
-    """The GUI, the Windows entry points and the CLIP converter are copies:
-    the original with each listed difference applied, once, is the copy."""
+    """The GUI, the Windows entry points, the CLIP converter and the typing
+    helpers are copies: the original with each listed difference applied,
+    once, is the copy."""
     text = (REPO / "hydrus_video_deduplicator_tpu" / name).read_text()
     for pattern, new in COPIES[name]:
         text, n = re.subn(pattern, lambda _m, new=new: new, text)

@@ -162,7 +162,8 @@ def test_rerank_counts_match_the_jax_orchestrator(tmp_path, capsys, jax_backend,
 
 def test_backend_choices_map_onto_the_base_class(monkeypatch):
     """The port's orchestrator resolves its own backend names ("gpu", not
-    the JAX package's "tpu") and has no device mesh."""
+    the JAX package's "tpu"), and a named device means no device mesh
+    (``test_torch_mesh.py`` covers the mesh over several devices)."""
     D = port_dedup.HydrusVideoDeduplicator
 
     def ns(search="auto", hash_="auto", device=None):
@@ -187,7 +188,10 @@ def test_backend_choices_map_onto_the_base_class(monkeypatch):
         assert D._pick_hash_backend(ns(hash_="auto"), 10_000) == "native"
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             D._pick_hash_backend(ns(hash_="gpu"), 1)
-    assert not hasattr(D, "_device_mesh")
+    assert D._device_mesh(ns(device="cpu")) is None
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        assert D._device_mesh(ns()) is None
     with pytest.raises(ValueError, match="unknown search backend"):
         D(None, None, search_backend="tpu")
     with pytest.raises(ValueError, match="unknown hash backend"):
