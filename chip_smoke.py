@@ -132,7 +132,25 @@ Phases (each raises on failure; nothing is caught):
    videos on the mesh as phase 5 runs it (no file failing, 100 sampled
    queued hashes equal to compute_phash, the planted set, the PDQ kernel
    on every member). It prints each member's launches of kernels 1, 3, 4
-   and 5, and the stage-4 seconds beside phases 2 and 9 with the card.
+   and 5, and the stage-4 seconds beside phases 2 and 9 with the card;
+12. the installed port: the package sources, setup.py, pyproject.toml and
+   README.md copied to a temporary directory, a wheel built there (``pip
+   wheel --no-deps --no-build-isolation``, no network) and installed with
+   ``pip install --no-deps --no-index --target``, each step timed; a fresh
+   interpreter on the installed copy, run outside the repository, must
+   import the port from there, name every kernel library as the checkout
+   does (the same sources) and load the port's native library from the
+   wheel; then the console script, ``<target>/bin/hydrus-video-deduplicator-tpu-torch
+   --search-backend gpu --threshold 75``, twice against a fake Hydrus
+   server that lists phase 2's 100,000 files, on a copy of the database
+   phase 2 saved after stage 2 (search_prefilter "auto", pruned): stage 1
+   must fetch no file, the marked set must equal the planted set, the
+   search cache must be fully marked, the second run must mark 0, and the
+   sweep library must have been built during the run, under the
+   checkout's name, inside the installed copy, and launched there (each
+   run's launch counts come from the run's own interpreter at its exit,
+   through a sitecustomize in a directory of its own on PYTHONPATH). It
+   prints the runs' stage-4 and whole-run seconds beside phase 2's.
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
@@ -167,6 +185,13 @@ Phase 11's mesh against one device in turns (one, mesh, mesh, one), stage 4
 and stage 1, as PERF.md compares them (``mesh_turns``):
 
     python3 -c "import chip_smoke as c; c.mesh_turns()"
+
+Phases 0 and 2, then phase 12 on the database phase 2 saved (the installed
+port alone, about 2.5 minutes):
+
+    python3 -c "import os, tempfile, chip_smoke as c; c.phase0_build(); \
+lib = c.build_library(100_000); db = os.path.join(tempfile.mkdtemp(), 'p2.sqlite'); \
+c.stage4_orchestrator(2, *lib, {'exists_mask_sweep'}, save_db=db); c.phase12_installed(lib, db)"
 
 Phase 2 inside trace_to, printing its busy share (any phase runs so through
 ``traced``):
@@ -233,6 +258,15 @@ RERANK_FRAMES = 32
 RERANK_FRAME_PAIRS = 16
 RERANK_SCENES = 200
 TOWER_TOL = 1e-4
+#: phase 12: the console script, what its wheel is built from (the
+#: packages and the packaging files), and the build outputs of a checkout
+#: that a copy of them leaves out
+CONSOLE_SCRIPT = "hydrus-video-deduplicator-tpu-torch"
+WHEEL_SOURCES = (
+    "hydrus_video_deduplicator_tpu", "hydrus_video_deduplicator_tpu_torch",
+    "hydrusvideodeduplicator", "setup.py", "pyproject.toml", "README.md",
+)
+BUILD_OUTPUTS = ("__pycache__", "build", "_build", "*.so", "*.o")
 #: the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -249,6 +283,11 @@ B1_OPS_PER_S = OPS_PER_FRAME_PAIR * 2.02e13
 
 def log(msg: str) -> None:
     print(f"[chip_smoke {time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def file_hash(i: int) -> str:
+    """The Hydrus file hash of video i of a stage-4 library."""
+    return f"{i:016x}" + "00" * 24
 
 
 def card_line() -> str:
@@ -661,9 +700,6 @@ def stage4_orchestrator(
 
     search_threshold = vptree.fix_vpdq_similarity(THRESHOLD)
     assert max(1, 101 - search_threshold) == min_sim
-
-    def file_hash(i: int) -> str:
-        return f"{i:016x}" + "00" * 24
 
     os.environ.setdefault("HVD_SQLITE_CACHE_MB", "1024")
     server = FakeHydrus({})
@@ -1646,6 +1682,233 @@ def phase11_mesh(lib2, lib_none, db2: str, db_none: str) -> None:
     phase5_stage1(11, RERANK_SCENES, MESH_STAGE1_SAMPLE, mesh=mesh)
 
 
+#: sitecustomize of phase 12's console-script runs: at the interpreter's
+#: exit it writes report_<pid>.json beside itself (where the port was
+#: imported from, the kernels' launch counts, the kernel build directory,
+#: whether jax or the JAX package was imported), then hands over to the
+#: sitecustomize it shadows, if any
+PROBE_SITECUSTOMIZE = """
+import atexit, importlib.machinery, importlib.util, json, os, sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+
+
+def _report():
+    port = "hydrus_video_deduplicator_tpu_torch"
+    mods = dict(sys.modules)
+    launches = {}
+    for name in ("ops.similarity_segments", "ops.similarity_block", "ops.pdq_filter"):
+        launches.update(getattr(mods.get(port + "." + name), "LAUNCHES", {}))
+    build = mods.get(port + ".ops._build")
+    report = {
+        "port": getattr(mods.get(port), "__file__", None),
+        "launches": launches,
+        "build_dir": str(build.build_dir()) if build else None,
+        "reference": sorted(
+            m for m in mods if m.split(".")[0] in ("jax", "hydrus_video_deduplicator_tpu")
+        ),
+    }
+    with open(os.path.join(_here, "report_%d.json" % os.getpid()), "w") as f:
+        json.dump(report, f)
+
+
+atexit.register(_report)
+_path = [p for p in sys.path if os.path.abspath(p or ".") != _here]
+_spec = importlib.machinery.PathFinder.find_spec("sitecustomize", _path)
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+"""
+
+
+class StampedLog(list):
+    """The fake server's request log, keeping each request's time too."""
+
+    def __init__(self):
+        super().__init__()
+        self.times: list[float] = []
+
+    def append(self, path):
+        self.times.append(time.perf_counter())
+        super().append(path)
+
+    def since(self, start: int, path: str) -> list[float]:
+        """Times of the requests for ``path`` from entry ``start`` on."""
+        return [t for p, t in zip(self[start:], self.times[start:]) if p == path]
+
+
+def run_checked(cmd, log_path: str, **kwargs) -> subprocess.CompletedProcess:
+    """Run cmd, its output kept in log_path; raise with its tail unless it exits 0."""
+    proc = subprocess.run(cmd, capture_output=True, text=True, stdin=subprocess.DEVNULL, **kwargs)
+    with open(log_path, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{' '.join(map(str, cmd))} exited {proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}"
+        )
+    return proc
+
+
+def phase12_installed(lib2, db2: str) -> None:
+    """The port as users install and run it: a wheel built from a copy of
+    the sources, installed with --target, its console script run twice on
+    phase 2's library from a copy of phase 2's database after stage 2."""
+    import sqlite3
+
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.db import DedupeDB, vptree
+    from hydrus_video_deduplicator_tpu_torch.ops import _build
+    from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
+
+    blobs, expected, _n_empty, _min_sim = lib2
+    n_videos = len(blobs)
+    port = "hydrus_video_deduplicator_tpu_torch"
+    names = {k: _build.library_name(k) for k in _build.KERNELS}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the runs are other processes on this card
+    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_installed_") as tmp:
+        src, site, probe, outside = (os.path.join(tmp, d) for d in ("src", "site", "probe", "cwd"))
+        for d in (src, probe, outside):
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        for name in WHEEL_SOURCES:
+            path = os.path.join(ROOT, name)
+            if os.path.isdir(path):
+                shutil.copytree(path, os.path.join(src, name),
+                                ignore=shutil.ignore_patterns(*BUILD_OUTPUTS))
+            else:
+                shutil.copy2(path, src)
+        t_copy = time.perf_counter() - t0
+        pip = [sys.executable, "-m", "pip"]
+        offline = ["--no-index", "--disable-pip-version-check"]
+        t0 = time.perf_counter()
+        run_checked([*pip, "wheel", "--no-deps", "--no-build-isolation", *offline, "-w",
+                     os.path.join(tmp, "dist"), src], os.path.join(tmp, "wheel.log"), cwd=tmp)
+        t_wheel = time.perf_counter() - t0
+        (wheel,) = os.listdir(os.path.join(tmp, "dist"))
+        t0 = time.perf_counter()
+        run_checked([*pip, "install", "--no-deps", *offline, "--target", site,
+                     os.path.join(tmp, "dist", wheel)], os.path.join(tmp, "install.log"), cwd=tmp)
+        t_install = time.perf_counter() - t0
+        log(f"phase 12: copy {t_copy:.3f} s, pip wheel {t_wheel:.3f} s ({wheel}), "
+            f"pip install --target {t_install:.3f} s")
+
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = site
+        code = "; ".join([
+            "import json",
+            f"import {port} as port",
+            f"from {port} import native",
+            f"from {port}.ops import _build",
+            "lib = native.get_lib()",
+            "print(json.dumps({'port': port.__file__, 'native': lib and lib._name,"
+            " 'names': {k: _build.library_name(k) for k in _build.KERNELS}}))",
+        ])
+        t0 = time.perf_counter()
+        proc = run_checked([sys.executable, "-c", code], os.path.join(tmp, "report.log"),
+                           cwd=outside, env=env)
+        report = json.loads(proc.stdout.splitlines()[-1])
+        log(f"phase 12: the installed copy ({time.perf_counter() - t0:.3f} s): {report}")
+        installed = os.path.join(site, port)
+        if os.path.dirname(report["port"]) != installed:
+            raise AssertionError(f"phase 12: the port imported from {report['port']}")
+        if report["names"] != names:
+            raise AssertionError(f"phase 12: library names {report['names']} != {names}")
+        if report["native"] != os.path.join(installed, "native", "build", "libhvdaccel.so"):
+            raise AssertionError(f"phase 12: the native library loaded from {report['native']}")
+
+        db_dir = os.path.join(tmp, "db")
+        os.makedirs(db_dir)
+        db_file = os.path.join(db_dir, DedupeDB.get_db_name())
+        shutil.copyfile(db2, db_file)
+        sweep_so = os.path.join(installed, "csrc", "build", names["exists_mask_sweep"])
+        if os.path.exists(sweep_so):
+            raise AssertionError("phase 12: the sweep library existed before the run")
+        with open(os.path.join(probe, "sitecustomize.py"), "w") as f:
+            f.write(PROBE_SITECUSTOMIZE)
+        env["PYTHONPATH"] = os.pathsep.join([site, probe])
+        server = FakeHydrus({file_hash(i): b"" for i in range(n_videos)})
+        server.requests_seen = StampedLog()
+        server.start()
+        cmd = [
+            os.path.join(site, "bin", CONSOLE_SCRIPT), "--api-key", DEFAULT_ACCESS_KEY,
+            "--api-url", server.url, "--dedup-database-dir", db_dir, "--threshold",
+            str(THRESHOLD), "--search-backend", "gpu",
+        ]
+        runs = []
+        try:
+            for run in (1, 2):
+                start, posts = len(server.requests_seen), len(server.relationship_posts)
+                t0 = time.perf_counter()
+                proc = subprocess.Popen(
+                    cmd, cwd=outside, env=env, stdin=subprocess.DEVNULL,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                out, _ = proc.communicate()
+                t_run = time.perf_counter() - t0
+                with open(os.path.join(tmp, f"cli{run}.log"), "w") as f:
+                    f.write(out)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"phase 12: the console script exited {proc.returncode}:\n{out[-4000:]}"
+                    )
+                with open(os.path.join(probe, f"report_{proc.pid}.json")) as f:
+                    seen = json.load(f)
+                listed = server.requests_seen.since(start, "/get_files/search_files")
+                counts = server.requests_seen.since(
+                    start, "/manage_file_relationships/get_potentials_count"
+                )
+                fetched = server.requests_seen[start:].count("/get_files/file")
+                runs.append({
+                    "s": t_run, "stage4_s": counts[1] - counts[0],
+                    "list_s": counts[0] - listed[0],
+                    "marked": len(server.relationship_posts) - posts,
+                    "fetched": fetched, **seen,
+                })
+                log(f"phase 12 run {run}: {runs[-1]}")
+                if run == 1:
+                    built = os.path.exists(sweep_so)
+        finally:
+            server.stop()
+        idx = {file_hash(i): i for i in range(n_videos)}
+        got = {tuple(sorted((idx[a], idx[b]))) for a, b in server.relationships}
+        conn = sqlite3.connect(db_file)
+        try:
+            unsearched = conn.execute(
+                "SELECT count(*) FROM shape_search_cache WHERE searched_distance IS NULL"
+                " OR searched_distance < ?",
+                (vptree.fix_vpdq_similarity(THRESHOLD),),
+            ).fetchone()[0]
+        finally:
+            conn.close()
+        first, second = runs
+        log(f"phase 12: marked {len(got)} pairs (planted {len(expected)}), missing "
+            f"{len(expected - got)}, extras {len(got - expected)}, unsearched left {unsearched}; "
+            f"the sweep library {names['exists_mask_sweep']} built in the installed copy: {built}")
+        if first["port"] is None or os.path.dirname(first["port"]) != installed:
+            raise AssertionError(f"phase 12: the console script ran the port from {first['port']}")
+        if first["reference"] or second["reference"]:
+            raise AssertionError(f"phase 12: the console script imported {first['reference']}")
+        if first["fetched"] or second["fetched"]:
+            raise AssertionError("phase 12: stage 1 fetched files")
+        if got != expected:
+            raise AssertionError("phase 12: the marked pairs differ from the planted set")
+        if unsearched:
+            raise AssertionError(f"phase 12: {unsearched} files left unsearched")
+        if second["marked"]:
+            raise AssertionError(f"phase 12: the second run marked {second['marked']} pairs")
+        if not built or first["build_dir"] != os.path.join(installed, "csrc", "build"):
+            raise AssertionError("phase 12: the sweep library was not built in the installed copy")
+        launched = {k: n for k, n in first["launches"].items() if n}
+        if set(launched) != {"exists_mask_sweep"}:
+            raise AssertionError(f"phase 12: kernel launches {first['launches']}")
+        log(f"phase 12 seconds: installed CLI run 1 {first['s']:.3f} (stage 4 "
+            f"{first['stage4_s']:.3f}, stage 1 listing to stage 4 {first['list_s']:.3f}), run 2 "
+            f"{second['s']:.3f} (stage 4 {second['stage4_s']:.3f}); phase 2 stage 4 search+mark "
+            f"{STAGE4_S[(2, 'auto')]:.3f} in this process; card: {card_line()}")
+
+
 def main() -> int:
     import torch
 
@@ -1656,7 +1919,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     phase0_build()
-    # phase 11 starts from the databases of phase 2 and phase 9's "none" run
+    # phases 11 and 12 start from the databases of phase 2 and phase 9's "none" run
     kept = tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_db_")
     db2, db_none = (os.path.join(kept.name, f"{name}.sqlite") for name in ("phase2", "phase9_none"))
     lib2 = build_library(N_VIDEOS)
@@ -1684,6 +1947,7 @@ def main() -> int:
     phase10_tower(dev)
     traced(phase10_rerank)
     phase11_mesh(lib2, lib_none, db2, db_none)
+    phase12_installed(lib2, db2)
     kept.cleanup()
     reference = sorted(
         m for m in sys.modules

@@ -36,7 +36,8 @@ the embedding rerank on an NVIDIA GPU, or sharded over several:
 The host layer is the package's own copy of the JAX package's host modules,
 under the same names: ``client``, ``config``, ``db``, ``decode``,
 ``dedup_util``, ``hashing``, ``native`` (the C++ hasher, ``matchHashBytes``
-and rep clustering, built by ``make`` into ``native/build/`` at first use),
+and rep clustering, built by ``make`` into ``native/build/`` at first use,
+or prebuilt there by the wheel),
 ``ops.reps``, ``page_logger`` and ``vpdq``. The package imports neither
 ``jax`` nor anything of the JAX package.
 """

@@ -1,4 +1,6 @@
-"""CLI entrypoint of the port: ``python -m hydrus_video_deduplicator_tpu_torch``.
+"""CLI entrypoint of the port: ``python -m hydrus_video_deduplicator_tpu_torch``,
+or the ``hydrus-video-deduplicator-tpu-torch`` command of an installed copy
+(``run_main_cli``).
 
 The JAX package's flag surface, with the device backend spelled ``gpu``:
 
@@ -40,6 +42,22 @@ from .dedup_util import print_and_log
 
 class ExitException(SystemExit):
     pass
+
+
+def _enable_kernel_build_cache(db_dir: Path) -> None:
+    """Keep the compiled CUDA kernels where they can be written.
+
+    The counterpart of the JAX package's compile cache beside the dedupe
+    database: the kernels build into ``csrc/build/`` inside the package
+    wherever that directory can be created and written (a checkout, a
+    user's install), else into ``<db_dir>/.cuda_cache/`` (a read-only
+    system install), so they are compiled once and not on every run. Only
+    where a library is stored moves: a failed build or launch still raises.
+    """
+    from .ops import _build
+
+    writable = _build.is_writable(_build.default_build_dir())
+    _build.set_build_dir(None if writable else Path(db_dir) / ".cuda_cache")
 
 
 def main(
@@ -118,6 +136,7 @@ def main(
         logging.disable()
 
     DedupeDB.set_db_dir(Path(dedup_database_dir))
+    _enable_kernel_build_cache(Path(dedup_database_dir))
 
     if overwrite is not None:
         pretty = "--" + ("" if overwrite else "no-") + "overwrite"
@@ -379,6 +398,11 @@ def run_main(gui: bool = False) -> None:
     finally:
         if config.is_windows_exe():
             input("Press ENTER to exit...")
+
+
+def run_main_cli() -> None:
+    """console_scripts entry (pyproject [project.scripts])."""
+    run_main(gui=False)
 
 
 if __name__ == "__main__":

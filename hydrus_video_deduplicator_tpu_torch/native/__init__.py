@@ -2,8 +2,10 @@
 
 The library is built on demand with ``make`` (g++) the first time it is
 needed, into ``native/build/``; the build is a single translation unit and
-takes ~1 s. If no C++ toolchain is available the framework transparently
-falls back to the numpy oracle (slower, bit-identical results).
+takes ~1 s. A wheel ships it prebuilt there (``setup.py``), and the loader
+takes that copy where ``make`` cannot run or ``build/`` cannot be written.
+If neither works the framework transparently falls back to the numpy
+oracle (slower, bit-identical results).
 
 Builds are safe across processes (``make_library``): pytest-xdist workers,
 or several programs started together on a fresh checkout, take turns on a
@@ -13,6 +15,7 @@ place, so no process ever loads half a file.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import logging
@@ -39,12 +42,13 @@ def make_library(name: str, variable: str) -> bool:
     ``make -q`` finds the library newer than its sources nothing runs;
     otherwise make builds it under a temporary name that ``os.replace``
     moves into place. False (with the compiler's output logged) when the
-    build fails.
+    build fails, ``make`` cannot run or ``build/`` cannot be created or
+    written: the caller then loads what ``build/`` holds, if anything.
     """
-    BUILD_DIR.mkdir(exist_ok=True)
     target = Path(BUILD_DIR.name) / name  # relative to the Makefile
     tmp = target.with_name(f"{name}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
+        BUILD_DIR.mkdir(exist_ok=True)
         with open(BUILD_DIR / ".lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             fresh = subprocess.run(
@@ -64,7 +68,8 @@ def make_library(name: str, variable: str) -> bool:
             os.replace(_DIR / tmp, _DIR / target)
             return True
     except (OSError, subprocess.TimeoutExpired) as exc:
-        (_DIR / tmp).unlink(missing_ok=True)
+        with contextlib.suppress(OSError):  # build/ may not exist or be writable
+            (_DIR / tmp).unlink()
         log.warning("native build of %s failed: %s", name, exc)
         return False
 

@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a into a shared
 library of its own with a plain C interface, which ``ctypes`` loads. Each
-library lands in ``csrc/build/`` under a name keyed on a hash of its source,
-of every ``csrc`` header it includes (``#include "..."``, followed
+library lands in ``build_dir()`` (``csrc/build/`` unless ``set_build_dir``
+chose another directory) under a name keyed on a hash of its source, of
+every ``csrc`` header it includes (``#include "..."``, followed
 recursively) and of its compiler flags, so an edited source or header
 builds anew and a checkout builds on its first call. Nothing here runs at
 import time.
@@ -18,11 +19,13 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC / "build"
+#: the directory set_build_dir() chose; None keeps default_build_dir()
+_build_dir: Path | None = None
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -71,17 +74,51 @@ def cuda_tool(name: str) -> str:
     raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to build csrc/*.cu")
 
 
+def default_build_dir() -> Path:
+    """``csrc/build/`` beside the sources."""
+    return CSRC / "build"
+
+
+def build_dir() -> Path:
+    """The directory the kernel libraries are built into and loaded from."""
+    return _build_dir or default_build_dir()
+
+
+def set_build_dir(path: Path | None) -> None:
+    """Build and load the kernel libraries in ``path`` from now on (None:
+    ``default_build_dir()``). It moves only where a library is stored."""
+    global _build_dir
+    _build_dir = None if path is None else Path(path)
+
+
+def is_writable(path: Path) -> bool:
+    """Whether directory ``path`` exists or can be created, and a file can
+    be written in it."""
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=path):
+            return True
+    except OSError:
+        return False
+
+
 def sources(name: str) -> list[Path]:
     """``csrc/<name>.cu`` and every header it includes with quotes, found
-    beside the including file and followed recursively, each once."""
+    beside the including file and followed recursively, each once.
+
+    Raises FileNotFoundError for a missing file: nvcc would fail on it, and
+    the library's name would no longer name its sources."""
     found: list[Path] = []
-    todo = [CSRC / f"{name}.cu"]
+    todo = [(CSRC / f"{name}.cu", None)]
     while todo:
-        path = todo.pop(0)
-        if path in found or not path.is_file():
+        path, included_by = todo.pop(0)
+        if path in found:
             continue
+        if not path.is_file():
+            where = f", included by {included_by}" if included_by else ""
+            raise FileNotFoundError(f"kernel source {path} is missing{where}")
         found.append(path)
-        todo += [path.parent / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+        todo += [(path.parent / inc.decode(), path) for inc in _INCLUDE.findall(path.read_bytes())]
     return found
 
 
@@ -105,15 +142,23 @@ def library_path(name: str) -> Path:
     """Path of kernel library ``name``, compiling ``csrc/<name>.cu`` first
     when absent.
 
-    Raises with the compiler's output when nvcc is missing or fails. The
+    Raises with the compiler's output when nvcc is missing or fails, and
+    when ``build_dir()`` cannot be created or written (a read-only
+    install, unless ``set_build_dir`` chose another directory). The
     compiler's report (registers, shared memory, spills from -Xptxas=-v)
     is kept beside the library as ``<library>.log``.
     """
     source = CSRC / f"{name}.cu"
-    so = BUILD_DIR / library_name(name)
+    so = build_dir() / library_name(name)
     if so.is_file():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not is_writable(so.parent):
+        raise RuntimeError(
+            f"cannot build {so.name}: the kernel build directory {so.parent} cannot be created"
+            " or written. The CLI builds the kernels in <dedup database dir>/.cuda_cache/"
+            f" where {default_build_dir()} cannot be written; outside it, call"
+            " ops._build.set_build_dir() with a writable directory"
+        )
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [cuda_tool("nvcc"), *nvcc_flags(name), "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

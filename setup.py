@@ -10,6 +10,10 @@ loaders fall back to the numpy oracle / OpenCV decode chain.
 Uses the portable distutils ccompiler (g++/clang on POSIX, MSVC on
 Windows) rather than the developer Makefile. The decode module is only
 built when the FFmpeg dev libraries are available.
+
+Both packages get their own copies: the JAX package's libraries land in its
+native/, the PyTorch port's in its native/build/, where its loader (and its
+Makefile) keep them.
 """
 
 from __future__ import annotations
@@ -22,29 +26,41 @@ from setuptools.command.build_py import build_py
 from setuptools.dist import Distribution
 
 NATIVE = Path(__file__).parent / "hydrus_video_deduplicator_tpu" / "native"
+PORT_NATIVE = Path(__file__).parent / "hydrus_video_deduplicator_tpu_torch" / "native"
+#: (a package's native sources, the directory its libraries land in)
+NATIVE_BUILDS = ((NATIVE, NATIVE), (PORT_NATIVE, PORT_NATIVE / "build"))
 
 
-def _compile_shared(sources, out_name, include_dirs=(), libraries=(), extra_args=()):
-    from distutils.ccompiler import new_compiler
-    from distutils.sysconfig import customize_compiler
+def _compile_shared(source, out, include_dirs=(), libraries=(), extra_args=()) -> None:
+    """Compile and link one library; on failure print why and go on: the
+    runtime loaders fall back (numpy oracle, OpenCV/Pillow decode)."""
+    try:
+        from distutils.ccompiler import new_compiler
+        from distutils.sysconfig import customize_compiler
 
-    cc = new_compiler()
-    customize_compiler(cc)
-    objs = cc.compile(
-        [str(s) for s in sources],
-        output_dir=str(NATIVE / "_build"),
-        include_dirs=[str(d) for d in include_dirs],
-        extra_preargs=list(extra_args),
-    )
-    cc.link_shared_object(
-        objs,
-        str(NATIVE / out_name),
-        libraries=list(libraries),
-        target_lang="c++",  # link with the C++ driver (libstdc++/libc++)
-    )
+        cc = new_compiler()
+        customize_compiler(cc)
+        objs = cc.compile(
+            [str(source)],
+            output_dir=str(source.parent / "_build"),
+            include_dirs=[str(d) for d in include_dirs],
+            extra_preargs=list(extra_args),
+        )
+        cc.link_shared_object(
+            objs,
+            str(out),
+            libraries=list(libraries),
+            target_lang="c++",  # link with the C++ driver (libstdc++/libc++)
+        )
+    except Exception as exc:  # no toolchain, or a missing source
+        print(f"skipping the build of {out} ({exc}); runtime will fall back")
+    else:
+        print(f"built {out}")
 
 
 def _build_native() -> None:
+    import subprocess
+
     is_msvc = sys.platform == "win32"
     # -ffp-contract=off is REQUIRED for hash bit-exactness (pdq_math.py);
     # MSVC does not contract FP by default (/fp:precise)
@@ -52,28 +68,23 @@ def _build_native() -> None:
         "-O3", "-std=c++17", "-fPIC", "-ffp-contract=off", "-pthread"
     ]
     try:
-        _compile_shared([NATIVE / "pdq.cpp"], "libhvdaccel.so", extra_args=args)
-        print("built native/libhvdaccel.so")
-    except Exception as exc:  # no toolchain: runtime falls back to numpy oracle
-        print(f"skipping native hasher build ({exc}); runtime will fall back")
-    try:
-        import subprocess
-
         cflags = subprocess.run(
             ["pkg-config", "--cflags", "libavformat", "libavcodec", "libswscale", "libavutil"],
             capture_output=True, text=True, check=True,
         ).stdout.split()
-        incs = [f[2:] for f in cflags if f.startswith("-I")]
-        _compile_shared(
-            [NATIVE / "decode.cpp"],
-            "libhvdecode.so",
-            include_dirs=incs,
-            libraries=["avformat", "avcodec", "swscale", "avutil"],
-            extra_args=args,
-        )
-        print("built native/libhvdecode.so")
-    except Exception as exc:  # no FFmpeg dev libs: OpenCV/Pillow chain instead
-        print(f"skipping native decode build ({exc}); runtime will fall back")
+    except (OSError, subprocess.CalledProcessError) as exc:
+        cflags = None  # no FFmpeg dev libs: OpenCV/Pillow chain instead
+        print(f"skipping the native decode builds ({exc}); runtime will fall back")
+    for native, lib_dir in NATIVE_BUILDS:
+        _compile_shared(native / "pdq.cpp", lib_dir / "libhvdaccel.so", extra_args=args)
+        if cflags is not None:
+            _compile_shared(
+                native / "decode.cpp",
+                lib_dir / "libhvdecode.so",
+                include_dirs=[f[2:] for f in cflags if f.startswith("-I")],
+                libraries=["avformat", "avcodec", "swscale", "avutil"],
+                extra_args=args,
+            )
 
 
 class build_py_with_native(build_py):

@@ -17,6 +17,8 @@ from pathlib import Path
 
 import pytest
 
+from hydrus_video_deduplicator_tpu_torch import entrypoint, native
+from hydrus_video_deduplicator_tpu_torch.native import decode as native_decode
 from hydrus_video_deduplicator_tpu_torch.ops import _build
 
 JAX_NATIVE = Path(__file__).resolve().parents[1] / "hydrus_video_deduplicator_tpu" / "native"
@@ -101,7 +103,7 @@ def fake_toolkit(tmp_path, monkeypatch):
     for path in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
         (csrc / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
+    monkeypatch.setattr(_build, "_build_dir", None)
     return csrc
 
 
@@ -171,3 +173,91 @@ def test_a_new_flag_renames_the_library_and_reaches_the_command(fake_toolkit, mo
     assert _build.library_name("similarity_block") != before
     cmd = _build.library_path("similarity_block").read_text().split()
     assert cmd[: len(_build.nvcc_flags("similarity_block"))] == _build.nvcc_flags("similarity_block")
+
+
+def test_sources_raise_on_a_missing_quoted_include(fake_toolkit):
+    """A header that is not there stops the name and the build alike,
+    instead of naming the library after the sources it could find."""
+    (fake_toolkit / "hamming_mma.cuh").unlink()
+    for name in MMA_KERNELS:
+        with pytest.raises(FileNotFoundError, match="hamming_mma.cuh.*included by"):
+            _build.sources(name)
+        with pytest.raises(FileNotFoundError, match="hamming_mma.cuh"):
+            _build.library_path(name)
+    assert [p.name for p in _build.sources("pdq_filter")] == ["pdq_filter.cu"]
+    assert not (fake_toolkit / "build").exists()
+
+
+def test_the_kernel_build_cache_moves_exactly_when_csrc_build_cannot_be_created(
+    fake_toolkit, tmp_path
+):
+    """``csrc/build/`` where it can be created and written; else the CLI's
+    choice, ``<db_dir>/.cuda_cache/``, holds the libraries. Outside the
+    CLI such a build raises, naming both directories."""
+    db_dir = tmp_path / "db"
+    entrypoint._enable_kernel_build_cache(db_dir)
+    assert _build.build_dir() == fake_toolkit / "build"
+    assert _build.library_path("pdq_filter").parent == fake_toolkit / "build"
+
+    shutil.rmtree(fake_toolkit / "build")
+    (fake_toolkit / "build").write_text("a file where the directory would go")
+    _build.set_build_dir(None)
+    with pytest.raises(RuntimeError, match=r"csrc/build.*\.cuda_cache"):
+        _build.library_path("pdq_filter")
+    entrypoint._enable_kernel_build_cache(db_dir)
+    assert _build.build_dir() == db_dir / ".cuda_cache"
+    so = _build.library_path("pdq_filter")
+    assert so.parent == db_dir / ".cuda_cache" and so.name == _build.library_name("pdq_filter")
+    # a failed build still raises from the cache
+    (fake_toolkit / "similarity_block.cu").write_text("FAIL")
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        _build.library_path("similarity_block")
+
+
+@pytest.fixture()
+def native_dir(tmp_path, monkeypatch):
+    """Point the port's native loaders at ``tmp_path/native`` (not built
+    yet), with no library loaded; returns that directory."""
+    root = tmp_path / "native"
+    for module in (native, native_decode):
+        monkeypatch.setattr(module, "_lib", None)
+        monkeypatch.setattr(module, "_load_failed", False)
+    monkeypatch.setattr(native, "_DIR", root)
+    monkeypatch.setattr(native, "BUILD_DIR", root / "build")
+    monkeypatch.setattr(native, "_SONAME", root / "build" / "libhvdaccel.so")
+    monkeypatch.setattr(native_decode, "_SONAME", root / "build" / "libhvdecode.so")
+    return root
+
+
+def test_native_loaders_do_not_raise_where_build_cannot_be_created(native_dir):
+    """The build directory under a regular file (so this holds as root as
+    well): no build, no library, no exception; the callers fall back."""
+    native_dir.write_text("a regular file, not a directory")
+    assert native.make_library("libhvdaccel.so", "SONAME") is False
+    assert native.get_lib() is None and not native.is_available()
+    assert native_decode.get_lib() is None
+
+
+@pytest.mark.parametrize("broken", ["no make", "no compiler"])
+def test_native_loader_takes_the_prebuilt_library_where_it_cannot_build(
+    native_dir, monkeypatch, broken
+):
+    """A wheel's prebuilt library in ``build/``, older than its sources
+    (pip may install it so): where ``make`` cannot run, or runs but cannot
+    compile, the loader takes that library instead of failing."""
+    native_dir.mkdir()
+    for name in ("Makefile", "pdq.cpp", "pdq_tables.h"):
+        shutil.copy2(Path(native.__file__).parent / name, native_dir / name)
+    assert native.make_library("libhvdaccel.so", "SONAME"), "the prebuilt library did not build"
+    os.utime(native_dir / "build" / "libhvdaccel.so", (1, 1))  # stale for make
+    if broken == "no make":
+        empty = native_dir.parent / "empty_path"
+        empty.mkdir()
+        monkeypatch.setenv("PATH", str(empty))
+    else:
+        monkeypatch.setenv("CXX", "false")
+    assert native.make_library("libhvdaccel.so", "SONAME") is False
+    lib = native.get_lib()
+    assert lib is not None and lib.hvd_abi_version() == 1
+    assert native._lib._name == str(native_dir / "build" / "libhvdaccel.so")
+    assert not list((native_dir / "build").glob("*.tmp"))

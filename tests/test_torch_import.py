@@ -70,8 +70,11 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    """An AST scan of every module of the port and of chip_smoke.py."""
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """An AST scan of every module of the port, of chip_smoke.py and of the
+    tests of the installed port, which need no JAX either."""
+    files = sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "test_torch_packaging.py"
+    ]
     assert len(files) >= 40
     bad = {
         str(f.relative_to(REPO)): [m for m in _imports(f) if _is_reference(m)] for f in files

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from hydrus_video_deduplicator_tpu.ops import similarity as jsim
 from hydrus_video_deduplicator_tpu.ops import similarity_segments as jseg
 from hydrus_video_deduplicator_tpu.vpdq import matchHashBytes
 from hydrus_video_deduplicator_tpu_torch.ops import similarity as ops_sim
@@ -507,3 +508,132 @@ def test_sweep_kernel_matches_plain_on_a_dense_tile_on_cuda(dense_tile, cuda_dev
     got = seg.exists_mask_sweep(*args, tol)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The reference functions of ops/similarity.py (test oracles) against the
+# JAX package's: exact integer equality on the same numpy inputs
+# ---------------------------------------------------------------------------
+
+#: frames per video of the reference inputs: two empty videos (0)
+REF_COUNTS_A = [3, 0, 5, 1, 4, 0, 2]
+REF_COUNTS_B = [2, 4, 0, 1, 6]
+#: padding frames after the real ones, each with the out-of-range video id
+REF_PAD = 3
+
+
+@pytest.fixture(scope="module")
+def reference_inputs():
+    """Two sides of ragged videos (empty ones included) with padding frames
+    carrying the out-of-range video id, and frames of side b at Hamming
+    distance exactly 31 and 32 from frames of side a, an all-zero frame on
+    each side, and a near copy of one video."""
+    rng = np.random.default_rng(67)
+
+    def side(counts):
+        frames = rng.integers(0, 256, (sum(counts) + REF_PAD, 32), dtype=np.uint8)
+        ids = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+        return frames, np.concatenate([ids, np.full(REF_PAD, len(counts), np.int32)])
+
+    a, a_ids = side(REF_COUNTS_A)
+    b, b_ids = side(REF_COUNTS_B)
+    b[0] = _flip_bits(a[0], rng.choice(256, 31, replace=False))  # a0-b0: 31, a match
+    b[1] = _flip_bits(a[1], rng.choice(256, 32, replace=False))  # a1-b1: 32, none
+    a[3] = 0
+    b[6] = 0
+    first_a = int(np.flatnonzero(a_ids == 4)[0])
+    first_b = int(np.flatnonzero(b_ids == 4)[0])
+    for f in range(4):  # b's video 4 starts as a near copy of a's video 4
+        b[first_b + f] = _flip_bits(a[first_a + f], rng.choice(256, int(rng.integers(0, 20))))
+    return {
+        "a": a, "b": b, "a_ids": a_ids, "b_ids": b_ids,
+        "a_counts": np.array(REF_COUNTS_A, np.int32), "b_counts": np.array(REF_COUNTS_B, np.int32),
+    }
+
+
+def _reference_distances(ref) -> np.ndarray:
+    return np.bitwise_count(ref["a"][:, None, :] ^ ref["b"][None, :, :]).sum(-1).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["hamming_tile", "hamming_tile_packed", "hamming_tile_popcount"])
+def test_hamming_tiles_equal_the_jax_package(reference_inputs, name):
+    """Each tile function on the ±1 rows or the packed words gives the JAX
+    function's int32 distances exactly, and both equal popcount(xor)."""
+    a = ops_sim.blobs_to_packed(reference_inputs["a"].tobytes()).copy()
+    b = ops_sim.blobs_to_packed(reference_inputs["b"].tobytes()).copy()
+    if name == "hamming_tile":
+        ours = tuple(ops_sim.unpack_pm1(ops_sim.to_words(x, CPU)) for x in (a, b))
+        theirs = (jsim.unpack_pm1(jnp.asarray(a)), jsim.unpack_pm1(jnp.asarray(b)))
+    else:
+        ours = (ops_sim.to_words(a, CPU), ops_sim.to_words(b, CPU))
+        theirs = (jnp.asarray(a), jnp.asarray(b))
+    got = getattr(ops_sim, name)(*ours)
+    want = np.asarray(getattr(jsim, name)(*theirs))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    assert np.array_equal(got.numpy(), want)
+    dist = _reference_distances(reference_inputs)
+    assert np.array_equal(want, dist)
+    assert dist[0, 0] == 31 and dist[1, 1] == 32
+
+
+@pytest.mark.parametrize("tol", [31, 79])
+def test_video_pair_similarity_equals_the_jax_package(reference_inputs, tol):
+    """The video-level match fractions from one frame tile: equal to the
+    JAX function's, 0 for empty videos, and padding frames (the out-of-range
+    id) counted nowhere; at tolerance 31 distance 31 matches and 32 does
+    not."""
+    ref = reference_inputs
+    ham = _reference_distances(ref)
+    num_a, num_b = len(REF_COUNTS_A), len(REF_COUNTS_B)
+    got = ops_sim.video_pair_similarity(
+        torch.from_numpy(ham), torch.from_numpy(ref["a_ids"]), torch.from_numpy(ref["b_ids"]),
+        torch.from_numpy(ref["a_counts"]), torch.from_numpy(ref["b_counts"]), num_a, num_b, tol,
+    )
+    want = np.asarray(
+        jsim.video_pair_similarity(
+            jnp.asarray(ham), jnp.asarray(ref["a_ids"]), jnp.asarray(ref["b_ids"]),
+            jnp.asarray(ref["a_counts"]), jnp.asarray(ref["b_counts"]), num_a, num_b, tol,
+        )
+    )
+    assert got.dtype == torch.int32 and got.shape == (num_a, num_b)
+    assert np.array_equal(got.numpy(), want)
+    empty_a, empty_b = ref["a_counts"] == 0, ref["b_counts"] == 0
+    assert (want[empty_a] == 0).all() and (want[:, empty_b] == 0).all()
+    assert want.max() > 0
+    if tol == 31:
+        # a0 (video 0, 3 frames) meets b0 (video 0, 2 frames) at 31 only;
+        # a1 (same video) meets b1 at 32, no match
+        assert want[0, 0] == min(100 * 1 // 3, 100 * 1 // 2)
+
+
+def test_int_similarity_to_distance_equals_the_jax_package():
+    sims = np.arange(0, 101, dtype=np.int32)
+    got = ops_sim.int_similarity_to_distance(torch.from_numpy(sims))
+    want = np.asarray(jsim.int_similarity_to_distance(jnp.asarray(sims)))
+    assert np.array_equal(got.numpy(), want)
+    assert got[0] == 101 and got[100] == 1
+
+
+@pytest.mark.cuda
+def test_reference_functions_on_cuda_equal_the_cpu(reference_inputs, cuda_device):
+    """On the card the oracles' integer products go through float64: the
+    same integers as on the CPU."""
+    ref = reference_inputs
+    a = ops_sim.blobs_to_packed(ref["a"].tobytes()).copy()
+    b = ops_sim.blobs_to_packed(ref["b"].tobytes()).copy()
+    for name in ("hamming_tile_packed", "hamming_tile_popcount"):
+        got, want = (
+            getattr(ops_sim, name)(ops_sim.to_words(a, dev), ops_sim.to_words(b, dev))
+            for dev in (cuda_device, CPU)
+        )
+        assert torch.equal(got.cpu(), want), name
+    args = [ref[k] for k in ("a_ids", "b_ids", "a_counts", "b_counts")]
+    ham = torch.from_numpy(_reference_distances(ref))
+    sims = {
+        dev: ops_sim.video_pair_similarity(
+            ham.to(dev), *(torch.from_numpy(x).to(dev) for x in args),
+            len(REF_COUNTS_A), len(REF_COUNTS_B),
+        )
+        for dev in (CPU, cuda_device)
+    }
+    assert torch.equal(sims[cuda_device].cpu(), sims[CPU])
