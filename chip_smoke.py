@@ -27,6 +27,19 @@ Phases (each raises on failure; nothing is caught):
    the marked set must equal the planted set, the search cache must be
    fully marked, a re-run must mark 0, and the sweep kernel must have
    launched, and no other kernel;
+2b. the delta, on phase 2's database right after its re-run (the
+   database phases 11 and 12 copy was saved before phase 2's search, so
+   they do not see it): N_DELTA = 10,000 new videos of
+   scene_library.build_delta (500 re-encodes of searched videos spread
+   across the library, 100 pairs among the new videos, the rest
+   background) listed by the fake server and queued, then
+   deduplicate(skip_hashing=True) with search_prefilter="auto": stage 2
+   must drain only the new rows, the server's relationships must be
+   phase 2's plants and the delta's with no pair of two searched videos
+   POSTed, the returned count must be the reference's rule, (500 + 2 x
+   100) // 2 = 350, the search cache must be fully marked, a re-run must
+   mark 0, and the sweep must have launched and no other kernel; its
+   stage-2 and stage-4 seconds print beside phase 2's;
 3. the CLI, ``python -m hydrus_video_deduplicator_tpu_torch`` (run in this
    process, so its kernel launches are counted), on the test corpus: with
    --hash-backend native --search-backend gpu --search-prefilter reps,
@@ -154,7 +167,7 @@ Phases (each raises on failure; nothing is caught):
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
-count over the run of the path it serves: phase 2 for the sweep, phase 5
+count over the run of the path it serves: phases 2 and 2b for the sweep, phase 5
 for the PDQ filter, phase 7 for the similarity kernel and, read from the
 same counters, for the counts mode (kernel 6) and the every-step sweep
 (kernel 2): these serve no path of the program, so theirs is 0; phase 6
@@ -180,6 +193,27 @@ library size of phases 2, 7, 8 and the "auto" run of phase 9 (default
 
     python3 -c "import sys, chip_smoke as c; \
 sys.exit(c.stage4_orchestrator(2, *c.build_library(1_000_000), {'exists_mask_sweep'}) is None)"
+
+Phase 2 at 1M with the mean-120 profile (median 84), the JAX package's
+artifacts/library_1m_fresh_mean120_r05.log (1,535 pairs):
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.stage4_orchestrator(2, \
+*c.build_library(1_000_000, median=84.0), {'exists_mask_sweep'}) is None)"
+
+The JAX package's library rehearsal (artifacts/library_10m_rehearsal.py:
+8-frame random videos, the corpus drained by stage 2 and marked searched,
+then new videos with 1,000 planted re-encodes through one deduplicate();
+``auto`` declines the prune, so kernel 3 and the host similarities run),
+at 1M + 100k (about 3 minutes on the card's machine) and at its own
+10M + 100k (about 25 minutes, 8 GB of SQLite in the temporary directory):
+
+    python3 -c "import chip_smoke as c; c.delta_rehearsal(1_000_000, 100_000)"
+    python3 -c "import chip_smoke as c; c.delta_rehearsal(10_000_000, 100_000)"
+
+Phases 0, 2 and 2b alone:
+
+    python3 -c "import chip_smoke as c; c.phase0_build(); lib = c.build_library(100_000); \
+c.stage4_orchestrator(2, *lib, {'exists_mask_sweep'}, after=lambda *s: c.phase2b_delta(lib, *s))"
 
 Phase 11's mesh against one device in turns (one, mesh, mesh, one), stage 4
 and stage 1, as PERF.md compares them (``mesh_turns``):
@@ -231,7 +265,13 @@ MMA_LIBRARIES = ("exists_mask_sweep", "similarity_block", "similarity_segments")
 MMA_OPCODES = re.compile(r"\b(IGMMA|HGMMA|QGMMA|IMMA|HMMA|BMMA)\b")
 #: the int8 GEMM yardstick's output chunk (int32 entries)
 YARDSTICK_CHUNK_ENTRIES = 1 << 28
-#: phase 2, 7, 9 and 11: stage-4 search+mark seconds by (phase,
+#: phase 2b: the new videos added to phase 2's searched library
+N_DELTA = 10_000
+#: delta_rehearsal (artifacts/library_10m_rehearsal.py): frames a video and
+#: planted new videos
+REHEARSAL_FRAMES = 8
+REHEARSAL_PLANTS = 1_000
+#: phase 2, 2b, 7, 9 and 11: stage-4 search+mark seconds by (phase,
 #: search_prefilter); phases 5 and 11: stage-1 (seconds, hashed frames)
 STAGE4_S: dict = {}
 STAGE1_S: dict = {}
@@ -347,13 +387,16 @@ def phase0_build():
         _build.load_library(name)
 
 
-def build_library(n: int, clip: int = 512, long_plants=(0, 0, 0)):
-    """The seed-7 scene library of n videos, frames clipped at ``clip``:
+def build_library(n: int, clip: int = 512, long_plants=(0, 0, 0), median: float = 48.0):
+    """The seed-7 scene library of n videos, frames clipped at ``clip``, at
+    the frame-count profile of ``median`` (48: mean 71; 84: mean 120):
     (blobs, expected undirected pairs, empty hashes, min_sim)."""
     from hydrus_video_deduplicator_tpu_torch import scene_library as sl
 
     t0 = time.perf_counter()
-    blobs, expected, n_empty = sl.build_corpus(n, seed=7, clip=clip, long_plants=long_plants)
+    blobs, expected, n_empty = sl.build_corpus(
+        n, seed=7, clip=clip, long_plants=long_plants, median=median
+    )
     pairs = {(a, b) for (a, b) in expected if a < b}
     lens = [len(b) // 32 for b in blobs]
     n_long = sum(1 for k in lens if k > sl.SEG_MAX_FRAMES)
@@ -656,9 +699,103 @@ class StageTimers:
         return sum(int(w) for w in self.work.get(name, []))
 
 
+def kernel_work() -> dict:
+    """Each search kernel's wrapper: (its module, its work per call):
+    (row block, valid step) slot pairs of 2048 x 2048 frames for the
+    segment kernels, real frame pairs for the bucketed one."""
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+
+    return {
+        "exists_mask_sweep": (seg, lambda *a: a[0].shape[0] // 2048 * a[4].sum() * 2048 * 2048),
+        "similarity_segments": (seg, lambda *a: a[0].shape[0] // 2048 * a[6].sum() * 2048 * 2048),
+        "similarity_block": (
+            sb, lambda *a: a[1].to(torch.int64).sum() * a[3].to(torch.int64).sum()
+        ),
+    }
+
+
+def search_timers(kernels: set) -> StageTimers:
+    """StageTimers over stage 4's engine stages, with each kernel of
+    ``kernels`` timed by CUDA events beside its work per call."""
+    from hydrus_video_deduplicator_tpu_torch.ops import pair_verify
+    from hydrus_video_deduplicator_tpu_torch.ops import reps as reps_mod
+    from hydrus_video_deduplicator_tpu_torch.parallel import engine
+    from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
+
+    timers = StageTimers()
+    timers.wrap(reps_mod, "extract_reps", "host clustering (reps)")
+    timers.wrap(GpuSearchEngine, "_stage_columns", "column staging")
+    timers.wrap(GpuSearchEngine, "_segment_route", "segment route (launches + drain)")
+    timers.wrap(GpuSearchEngine, "_bucket_pair", "bucketed route (staging, launches, hits)")
+    timers.wrap(pair_verify, "verify_pairs", "stage B (verify)")
+    timers.wrap(
+        engine, "_with_similarities", "hit similarities (matchHashBytes)", count_pairs=True
+    )
+    work = kernel_work()
+    for name in kernels:
+        timers.wrap_kernel(work[name][0], name, work[name][1])
+    return timers
+
+
+def log_search_timers(phase, timers: StageTimers, kernels: set) -> None:
+    """Prints what search_timers measured."""
+    for label, sec in timers.seconds.items():
+        n = f", {timers.pairs[label]} pairs" if label in timers.pairs else ""
+        log(f"phase {phase}   {label}: {sec:.3f} s{n}")
+    for name in sorted(kernels):
+        kernel_ms = timers.kernel_ms(name)
+        done = timers.work_done(name)
+        unit = "real frame pairs" if name == "similarity_block" else (
+            "frame-pair slots ((row block, valid step) pairs x 2048 x 2048)"
+        )
+        log(
+            f"phase {phase}   {name} device time: {kernel_ms:.3f} ms over "
+            f"{timers.launches(name)} launches, {done} {unit}, "
+            f"{done / max(kernel_ms / 1e3, 1e-9):.4g} per s"
+        )
+
+
+def search_launches() -> dict:
+    """Every search kernel's launch count."""
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+
+    return {name: n for counter in (seg.LAUNCHES, sb.LAUNCHES) for name, n in counter.items()}
+
+
+def zero_search_launches() -> None:
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+
+    for counter in (seg.LAUNCHES, sb.LAUNCHES):
+        for name in counter:
+            counter[name] = 0
+
+
+def check_launches(phase, launches: dict, kernels: set) -> None:
+    """Every kernel of ``kernels`` launched, and no other search kernel."""
+    idle = sorted(name for name in kernels if launches[name] == 0)
+    if idle:
+        raise AssertionError(f"phase {phase}: {idle} never launched")
+    others = {name: n for name, n in launches.items() if name not in kernels and n}
+    if others:
+        raise AssertionError(f"phase {phase}: other kernels launched: {others}")
+
+
+def unsearched_files(db, search_threshold: int) -> int:
+    return db.execute(
+        "SELECT count(*) FROM shape_search_cache WHERE searched_distance IS NULL"
+        " OR searched_distance < ?",
+        (search_threshold,),
+    ).fetchone()[0]
+
+
 def stage4_orchestrator(
     phase: int, blobs, expected, n_empty, min_sim, kernels: set, mesh=None,
-    save_db: str | None = None, from_db: str | None = None, **kwargs
+    save_db: str | None = None, from_db: str | None = None, after=None, **kwargs
 ):
     """Stage 4 of a fresh library through deduplicate(skip_hashing=True)
     with the port's orchestrator (kwargs go to its constructor): the marked
@@ -669,35 +806,20 @@ def stage4_orchestrator(
     member. ``save_db`` copies the database there once stage 2 and the
     maintenance are done; ``from_db`` starts from a copy of such a file
     instead of filling the queue and running stage 2 (phase 11 so reuses
-    the libraries of phases 2 and 9). Returns the launch counts of every
-    search kernel; records the stage-4 seconds in STAGE4_S[(phase,
-    search_prefilter)]."""
+    the libraries of phases 2 and 9). ``after(deduper, db, server,
+    seconds)`` runs on the live database once the re-run has passed
+    (phase 2b), with this run's stage-2 and stage-4 seconds. Returns the
+    launch counts of every search kernel; records the stage-4 seconds in
+    STAGE4_S[(phase, search_prefilter)]."""
     import torch
 
     from hydrus_video_deduplicator_tpu_torch import dedup
     from hydrus_video_deduplicator_tpu_torch.client import HVDClient
     from hydrus_video_deduplicator_tpu_torch.db import DedupeDB, vptree
-    from hydrus_video_deduplicator_tpu_torch.ops import pair_verify
-    from hydrus_video_deduplicator_tpu_torch.ops import reps as reps_mod
-    from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
-    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
-    from hydrus_video_deduplicator_tpu_torch.parallel import engine
     from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
     from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
 
     n_videos = len(blobs)
-    counters = (seg.LAUNCHES, sb.LAUNCHES)
-    #: each kernel's wrapper, its module and its work per call: (row block,
-    #: valid step) slot pairs of 2048 x 2048 frames for the segment kernels,
-    #: real frame pairs for the bucketed one
-    work = {
-        "exists_mask_sweep": (seg, lambda *a: a[0].shape[0] // 2048 * a[4].sum() * 2048 * 2048),
-        "similarity_segments": (seg, lambda *a: a[0].shape[0] // 2048 * a[6].sum() * 2048 * 2048),
-        "similarity_block": (
-            sb, lambda *a: a[1].to(torch.int64).sum() * a[3].to(torch.int64).sum()
-        ),
-    }
-
     search_threshold = vptree.fix_vpdq_similarity(THRESHOLD)
     assert max(1, 101 - search_threshold) == min_sim
 
@@ -746,30 +868,18 @@ def stage4_orchestrator(
             n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
             assert n_files == n_videos, n_files
 
-            timers = StageTimers()
-            timers.wrap(reps_mod, "extract_reps", "host clustering (reps)")
-            timers.wrap(GpuSearchEngine, "_stage_columns", "column staging")
-            timers.wrap(GpuSearchEngine, "_segment_route", "segment route (launches + drain)")
-            timers.wrap(GpuSearchEngine, "_bucket_pair", "bucketed route (staging, launches, hits)")
-            timers.wrap(pair_verify, "verify_pairs", "stage B (verify)")
-            timers.wrap(
-                engine, "_with_similarities", "hit similarities (matchHashBytes)",
-                count_pairs=True,
-            )
-            for name in kernels:
-                timers.wrap_kernel(work[name][0], name, work[name][1])
+            timers = search_timers(kernels)
             per_member = {}
             if mesh is not None:
                 timers.patch(dedup.HydrusVideoDeduplicator, "_device_mesh", lambda self: mesh)
+                work = kernel_work()
                 for name in kernels:
                     module = work[name][0]
                     per_member[name] = timers.count_members(
                         mesh, module, name, module.LAUNCHES, name
                     )
             matmuls = timers.count_inside(GpuSearchEngine, "_bucket_pair", torch, "matmul")
-            for counter in counters:
-                for name in counter:
-                    counter[name] = 0
+            zero_search_launches()
             t0 = time.perf_counter()
             try:
                 pairs = deduper.deduplicate(skip_hashing=True)
@@ -777,15 +887,11 @@ def stage4_orchestrator(
                 timers.restore()
             t_search = time.perf_counter() - t0
             STAGE4_S[(phase, kwargs.get("search_prefilter", "auto"))] = t_search
-            launches = {name: n for counter in counters for name, n in counter.items()}
+            launches = search_launches()
 
             idx = {file_hash(i): i for i in range(n_videos)}
             got = {tuple(sorted((idx[a], idx[b]))) for a, b in server.relationships}
-            unsearched = db.execute(
-                "SELECT count(*) FROM shape_search_cache WHERE searched_distance IS NULL"
-                " OR searched_distance < ?",
-                (search_threshold,),
-            ).fetchone()[0]
+            unsearched = unsearched_files(db, search_threshold)
             log(
                 f"phase {phase}: N={n_videos} ({n_empty} empty hashes), {kwargs}: marked "
                 f"{len(got)} pairs (planted {len(expected)}), missing {len(expected - got)}, "
@@ -797,12 +903,7 @@ def stage4_orchestrator(
                 raise AssertionError(f"phase {phase}: the marked pairs differ from the planted set")
             if unsearched:
                 raise AssertionError(f"phase {phase}: {unsearched} files left unsearched")
-            idle = sorted(name for name in kernels if launches[name] == 0)
-            if idle:
-                raise AssertionError(f"phase {phase}: {idle} never launched")
-            others = {name: n for name, n in launches.items() if name not in kernels and n}
-            if others:
-                raise AssertionError(f"phase {phase}: other kernels launched: {others}")
+            check_launches(phase, launches, kernels)
             if matmuls[0]:
                 raise AssertionError(f"phase {phase}: the bucketed route ran torch.matmul")
             for name, counts in sorted(per_member.items()):
@@ -822,24 +923,257 @@ def stage4_orchestrator(
                 f"phase {phase} stage times (s): {before}, stage 4 search+mark "
                 f"{t_search:.3f}, re-run {t_rerun:.3f}"
             )
-            for label, sec in timers.seconds.items():
-                n = f", {timers.pairs[label]} pairs" if label in timers.pairs else ""
-                log(f"phase {phase}   {label}: {sec:.3f} s{n}")
-            for name in sorted(kernels):
-                kernel_ms = timers.kernel_ms(name)
-                done = timers.work_done(name)
-                unit = "real frame pairs" if name == "similarity_block" else (
-                    "frame-pair slots ((row block, valid step) pairs x 2048 x 2048)"
-                )
-                log(
-                    f"phase {phase}   {name} device time: {kernel_ms:.3f} ms over "
-                    f"{timers.launches(name)} launches, {done} {unit}, "
-                    f"{done / max(kernel_ms / 1e3, 1e-9):.4g} per s"
-                )
+            log_search_timers(phase, timers, kernels)
+            if after is not None:
+                after(deduper, db, server, {"stage 2": t_stage2, "stage 4": t_search})
             db.close()
         finally:
             server.stop()
     return launches
+
+
+def phase2b_delta(lib, deduper, db, server, before: dict) -> int:
+    """Phase 2b, the delta: N_DELTA new videos of scene_library.build_delta
+    added to the library that phase 2 has just searched (``deduper``,
+    ``db`` and ``server`` are phase 2's, after its re-run), listed by the
+    fake server and queued in the database, then one
+    deduplicate(skip_hashing=True) with the user's default
+    search_prefilter="auto". Stage 2 must drain only the new rows; the
+    server's relationships must be phase 2's plants and the delta's, every
+    POST of the run one pair of the delta's (none between two searched
+    videos, none twice); the returned count must follow the reference's
+    rule, a hit against a searched video one event and a hit between two
+    new videos two, halved; the search cache must be fully marked, a
+    re-run must mark 0, and the sweep must have launched and no other
+    search kernel. Prints the run's stage-2 and stage-4 seconds beside
+    phase 2's (``before``). Returns the sweep's launches."""
+    from hydrus_video_deduplicator_tpu_torch import scene_library as sl
+    from hydrus_video_deduplicator_tpu_torch.db import vptree
+
+    blobs, expected, _n_empty, _min_sim = lib
+    n = len(blobs)
+    t0 = time.perf_counter()
+    new, delta = sl.build_delta(blobs, N_DELTA)
+    delta_pairs = {(a, b) for a, b in delta if a < b}
+    n_cross = sum(1 for a, _ in delta_pairs if a < n)
+    want_count = (n_cross + 2 * (len(delta_pairs) - n_cross)) // 2
+    log(
+        f"phase 2b delta: {N_DELTA} new videos ({sum(map(len, new)) // 32} frames) on the "
+        f"{n} searched ones: {n_cross} re-encodes of searched videos (the first of video "
+        f"{min(a for a, _ in delta_pairs)}, the last of {max(a for a, b in delta_pairs if a < n)}), "
+        f"{len(delta_pairs) - n_cross} pairs among the new videos; "
+        f"{time.perf_counter() - t0:.1f} s to build"
+    )
+    server.files.update({file_hash(n + k): b"" for k in range(N_DELTA)})
+    t0 = time.perf_counter()
+    db.conn.executemany(
+        "INSERT OR REPLACE INTO phashed_file_queue (file_hash, phash) VALUES (?, ?)",
+        [(file_hash(n + k), blob) for k, blob in enumerate(new)],
+    )
+    db.commit()
+    t_queue = time.perf_counter() - t0
+
+    kernels = {"exists_mask_sweep"}
+    timers = search_timers(kernels)
+    drained: list[int] = []
+    drain = db.drain_phashed_queue_batch
+    timers.patch(db, "drain_phashed_queue_batch", lambda limit: drained.append(drain(limit)) or drained[-1])
+    timers.wrap(deduper, "process_phashed_file_queue", "stage 2")
+    timers.wrap(deduper, "find_potential_duplicates", "stage 4 search+mark")
+    posts0 = len(server.relationship_posts)
+    zero_search_launches()
+    t0 = time.perf_counter()
+    try:
+        pairs = deduper.deduplicate(skip_hashing=True)
+    finally:
+        timers.restore()
+    t_run = time.perf_counter() - t0
+    launches = search_launches()
+    STAGE4_S[("2b", "auto")] = timers.seconds["stage 4 search+mark"]
+
+    idx = {file_hash(i): i for i in range(n + N_DELTA)}
+    pair = lambda a, b: tuple(sorted((idx[a], idx[b])))  # noqa: E731
+    got = {pair(a, b) for a, b in server.relationships}
+    posted = [pair(r["hash_a"], r["hash_b"]) for r in server.relationship_posts[posts0:]]
+    old = [p for p in posted if max(p) < n]
+    search_threshold = vptree.fix_vpdq_similarity(THRESHOLD)
+    unsearched = unsearched_files(db, search_threshold)
+    n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
+    log(
+        f"phase 2b: stage 2 drained {sum(drained)} rows in {len(drained)} batches, files "
+        f"{n_files}; marked {len(got)} pairs in all (phase 2's {len(expected)} + the delta's "
+        f"{len(delta_pairs)}), POSTed {len(posted)} ({len(set(posted))} distinct, {len(old)} "
+        f"between searched videos), missing {len((expected | delta_pairs) - got)}, extras "
+        f"{len(got - (expected | delta_pairs))}, unsearched left {unsearched}; reported {pairs} "
+        f"(the rule: ({n_cross} + 2 x {len(delta_pairs) - n_cross}) // 2 = {want_count}); "
+        f"kernel launches {launches}"
+    )
+    if sum(drained) != N_DELTA or n_files != n + N_DELTA:
+        raise AssertionError(f"phase 2b: stage 2 drained {sum(drained)} rows, not {N_DELTA}")
+    if got != expected | delta_pairs:
+        raise AssertionError("phase 2b: the marked pairs differ from phase 2's and the delta's")
+    if old or len(posted) != len(set(posted)) or set(posted) != delta_pairs:
+        raise AssertionError("phase 2b: the run POSTed other pairs than the delta's, once each")
+    if pairs != want_count:
+        raise AssertionError(f"phase 2b: reported {pairs}, the reference's rule gives {want_count}")
+    if unsearched:
+        raise AssertionError(f"phase 2b: {unsearched} files left unsearched")
+    check_launches("2b", launches, kernels)
+    t0 = time.perf_counter()
+    pairs2 = deduper.deduplicate(skip_hashing=True)
+    t_rerun = time.perf_counter() - t0
+    if pairs2 != 0 or len(server.relationship_posts) != posts0 + len(posted):
+        raise AssertionError(f"phase 2b: re-run marked {pairs2} pairs")
+    log(
+        f"phase 2b stage times (s): queue fill {t_queue:.3f}, stage 2 "
+        f"{timers.seconds['stage 2']:.3f} (phase 2: {before['stage 2']:.3f}), stage 4 "
+        f"search+mark {timers.seconds['stage 4 search+mark']:.3f} (phase 2: "
+        f"{before['stage 4']:.3f}), deduplicate() {t_run:.3f}, re-run {t_rerun:.3f}"
+    )
+    log_search_timers("2b", timers, kernels)
+    return launches["exists_mask_sweep"]
+
+
+def delta_rehearsal(n_corpus: int, n_new: int) -> None:
+    """The JAX package's library rehearsal (artifacts/library_10m_rehearsal.py)
+    through the port's orchestrator on the card: n_corpus videos of
+    REHEARSAL_FRAMES random 256-bit frames (seed 7) queued and drained by
+    stage 2, the corpus then marked searched, and n_new new videos (seed
+    11) queued, of which new video k < REHEARSAL_PLANTS is corpus video
+    k * stride with one bit flipped per frame (similarity 100); then one
+    deduplicate(skip_hashing=True) with the user's default
+    search_prefilter="auto", which declines the prune on random frames, so
+    stage 4 runs the segment similarity kernel and the host similarities.
+    The marked set must be the planted pairs exactly, the reported count
+    REHEARSAL_PLANTS // 2 (a new-against-searched hit is one event,
+    halved), nothing left unsearched, a re-run must mark 0, and the
+    segment similarity kernel must have launched and no other search
+    kernel. Prints each part's seconds, kernel 3's launches and device
+    time, and the peak host RSS. Not part of main()."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch import dedup
+    from hydrus_video_deduplicator_tpu_torch.client import HVDClient
+    from hydrus_video_deduplicator_tpu_torch.db import DedupeDB, vptree
+    from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("delta_rehearsal: CUDA is not available")
+    os.environ.setdefault("HVD_SQLITE_CACHE_MB", "4096")
+    n_plant = min(REHEARSAL_PLANTS, n_new)
+    stride = max(1, n_corpus // (n_plant + 1))
+    frame_bytes = REHEARSAL_FRAMES * 32
+    search_threshold = vptree.fix_vpdq_similarity(THRESHOLD)
+
+    def rss() -> str:
+        return f"peak RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB"
+
+    def new_hash(k: int) -> str:
+        return f"{k:016x}" + "ff" + "00" * 23
+
+    server = FakeHydrus({})
+    server.start()
+    with tempfile.TemporaryDirectory(prefix="hvd_delta_rehearsal_") as workdir:
+        try:
+            log(f"delta rehearsal: corpus {n_corpus} + new {n_new} ({n_plant} planted, stride "
+                f"{stride}), {REHEARSAL_FRAMES} frames a video; {shutil.disk_usage(workdir).free / 1e9:.1f} "
+                f"GB free; card: {card_line()}")
+            DedupeDB.set_db_dir(workdir)
+            DedupeDB.create_db()
+            db = DedupeDB.DedupeDb(DedupeDB.get_db_dir(), DedupeDB.get_db_name())
+            db.init_connection()
+            client = HVDClient(None, server.url, DEFAULT_ACCESS_KEY, None)
+            insert = "INSERT OR REPLACE INTO phashed_file_queue (file_hash, phash) VALUES (?, ?)"
+
+            t0 = time.perf_counter()
+            rng = np.random.default_rng(7)
+            targets: dict[int, bytes] = {}
+            for i0 in range(0, n_corpus, 100_000):
+                raw = rng.integers(0, 256, (min(100_000, n_corpus - i0), frame_bytes), dtype=np.uint8)
+                for t in range(-(-i0 // stride) * stride, i0 + len(raw), stride):
+                    if t // stride < n_plant:
+                        targets[t] = raw[t - i0].tobytes()
+                db.conn.executemany(insert, ((file_hash(i0 + k), r.tobytes()) for k, r in enumerate(raw)))
+                if (i0 // 100_000) % 10 == 9:
+                    db.commit()
+            db.commit()
+            log(f"delta rehearsal: corpus queued in {time.perf_counter() - t0:.3f} s; {rss()}")
+
+            deduper = dedup.HydrusVideoDeduplicator(db, client=client, search_backend="gpu")
+            deduper.threshold = THRESHOLD
+            t0 = time.perf_counter()
+            db.begin_transaction()
+            with db.conn:
+                deduper.process_phashed_file_queue()
+            t_stage2 = time.perf_counter() - t0
+            db.begin_transaction()
+            with db.conn:
+                deduper.run_maintenance()
+            n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
+            log(f"delta rehearsal: stage 2 drained the corpus in {t_stage2:.3f} s "
+                f"({n_corpus / t_stage2:.0f} rows/s), files {n_files}, database "
+                f"{os.path.getsize(DedupeDB.get_db_file_path()) / 1e9:.2f} GB; {rss()}")
+            if n_files != n_corpus:
+                raise AssertionError(f"delta rehearsal: {n_files} files after stage 2")
+            t0 = time.perf_counter()
+            db.conn.execute("UPDATE shape_search_cache SET searched_distance = ?", (search_threshold,))
+            db.commit()
+            log(f"delta rehearsal: corpus marked searched in {time.perf_counter() - t0:.3f} s")
+
+            rng = np.random.default_rng(11)
+            planted = set()
+            rows = []
+            for k in range(n_new):
+                if k < n_plant:
+                    arr = np.frombuffer(targets[k * stride], dtype=np.uint8).copy()
+                    arr = arr.reshape(REHEARSAL_FRAMES, 32)
+                    arr[:, k % 32] ^= np.uint8(1 << (k % 8))
+                    blob = arr.tobytes()
+                    planted.add(tuple(sorted((new_hash(k), file_hash(k * stride)))))
+                else:
+                    blob = rng.integers(0, 256, frame_bytes, dtype=np.uint8).tobytes()
+                rows.append((new_hash(k), blob))
+            db.conn.executemany(insert, rows)
+            db.commit()
+            del rows
+
+            kernels = {"similarity_segments"}
+            timers = search_timers(kernels)
+            timers.wrap(deduper, "process_phashed_file_queue", "stage 2")
+            timers.wrap(deduper, "_pick_search_prefilter", "prefilter choice (clustering)")
+            timers.wrap(deduper, "find_potential_duplicates", "stage 4 search+mark")
+            zero_search_launches()
+            t0 = time.perf_counter()
+            try:
+                pairs = deduper.deduplicate(skip_hashing=True)
+            finally:
+                timers.restore()
+            t_run = time.perf_counter() - t0
+            launches = search_launches()
+            got = {tuple(sorted(p)) for p in server.relationships}
+            unsearched = unsearched_files(db, search_threshold)
+            log(f"delta rehearsal: deduplicate(skip_hashing=True) at {n_new} x {n_corpus + n_new}: "
+                f"{t_run:.3f} s, reported {pairs}; marked {len(got)} pairs (planted {len(planted)}), "
+                f"missing {len(planted - got)}, extras {len(got - planted)}, unsearched left "
+                f"{unsearched}; kernel launches {launches}; {rss()}")
+            log_search_timers("rehearsal", timers, kernels)
+            if got != planted or pairs != n_plant // 2:
+                raise AssertionError("delta rehearsal: the marked pairs or the count are not the plants'")
+            if unsearched:
+                raise AssertionError(f"delta rehearsal: {unsearched} files left unsearched")
+            check_launches("rehearsal", launches, kernels)
+            t0 = time.perf_counter()
+            pairs2 = deduper.deduplicate(skip_hashing=True)
+            log(f"delta rehearsal: re-run {time.perf_counter() - t0:.3f} s, marked {pairs2}; "
+                f"{rss()}; card: {card_line()}")
+            if pairs2 != 0:
+                raise AssertionError(f"delta rehearsal: the re-run marked {pairs2} pairs")
+            db.close()
+        finally:
+            server.stop()
 
 
 def phase3_cli():
@@ -1614,7 +1948,28 @@ def phase11_choose_mesh():
 
 
 def mesh_turns() -> None:
-    """Phase 11's mesh against one device in turns (one, mesh, mesh, one),
+    """Phase 2 at 1M with the mean-120 profile (median 84), the JAX package's
+artifacts/library_1m_fresh_mean120_r05.log (1,535 pairs):
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.stage4_orchestrator(2, \
+*c.build_library(1_000_000, median=84.0), {'exists_mask_sweep'}) is None)"
+
+The JAX package's library rehearsal (artifacts/library_10m_rehearsal.py:
+8-frame random videos, the corpus drained by stage 2 and marked searched,
+then new videos with 1,000 planted re-encodes through one deduplicate();
+``auto`` declines the prune, so kernel 3 and the host similarities run),
+at 1M + 100k (about 3 minutes on the card's machine) and at its own
+10M + 100k (about 25 minutes, 8 GB of SQLite in the temporary directory):
+
+    python3 -c "import chip_smoke as c; c.delta_rehearsal(1_000_000, 100_000)"
+    python3 -c "import chip_smoke as c; c.delta_rehearsal(10_000_000, 100_000)"
+
+Phases 0, 2 and 2b alone:
+
+    python3 -c "import chip_smoke as c; c.phase0_build(); lib = c.build_library(100_000); \
+c.stage4_orchestrator(2, *lib, {'exists_mask_sweep'}, after=lambda *s: c.phase2b_delta(lib, *s))"
+
+Phase 11's mesh against one device in turns (one, mesh, mesh, one),
     each a fresh run as its phase makes it: stage 4 of phase 2's library
     (auto) and of phase 9's N_NONE library (none), then stage 1 of phase
     10's 400 videos. "One device" is a one-member mesh on cuda:0, so the
@@ -1875,11 +2230,7 @@ def phase12_installed(lib2, db2: str) -> None:
         got = {tuple(sorted((idx[a], idx[b]))) for a, b in server.relationships}
         conn = sqlite3.connect(db_file)
         try:
-            unsearched = conn.execute(
-                "SELECT count(*) FROM shape_search_cache WHERE searched_distance IS NULL"
-                " OR searched_distance < ?",
-                (vptree.fix_vpdq_similarity(THRESHOLD),),
-            ).fetchone()[0]
+            unsearched = unsearched_files(conn, vptree.fix_vpdq_similarity(THRESHOLD))
         finally:
             conn.close()
         first, second = runs
@@ -1924,9 +2275,11 @@ def main() -> int:
     db2, db_none = (os.path.join(kept.name, f"{name}.sqlite") for name in ("phase2", "phase9_none"))
     lib2 = build_library(N_VIDEOS)
     timing = phase1_kernel_vs_plain(lib2[0], dev)
+    delta_launches = []  # phase 2b runs on phase 2's database after its re-run
     sweep_launches = stage4_orchestrator(
-        2, *lib2, {"exists_mask_sweep"}, save_db=db2
-    )["exists_mask_sweep"]
+        2, *lib2, {"exists_mask_sweep"}, save_db=db2,
+        after=lambda *state: delta_launches.append(phase2b_delta(lib2, *state)),
+    )["exists_mask_sweep"] + delta_launches[0]
     phase3_cli()
     pdq_timing = phase4_pdq_kernel_vs_plain(dev)
     pdq_launches = phase5_stage1()

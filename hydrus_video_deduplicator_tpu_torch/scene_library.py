@@ -22,6 +22,15 @@ LONG_MIN..clip frames, drawn after every other plant so the rest of the
 library does not change: re-encodes of long videos placed at k + n // 2
 (far) or k + 1 (adjacent), and half-clips of long videos, whose halves fall
 at or below SEG_MAX_FRAMES.
+
+``median`` sets the median of the frame-count model: 48 (the default) is
+the mean-71 profile, 84 the mean-120 one (``HVD_SWEEP_MEDIAN=84`` of
+``artifacts/sweep_scenes.py``).
+
+``build_delta`` draws new videos for a library that ``build_corpus`` built,
+as a user adds videos to an already-searched library: background videos
+from the same model under a seed of their own, re-encodes of library
+videos and pairs among the new videos, with the exact expected pairs.
 """
 
 from __future__ import annotations
@@ -47,12 +56,19 @@ GEN_CHUNK = 2_000_000  # frames per generation slab (bounds RNG temps)
 #: the segment route's limit; a long video has more frames than this
 SEG_MAX_FRAMES = 512
 LONG_MIN = SEG_MAX_FRAMES + 1
+#: build_delta's plants: re-encodes of library videos, pairs among the new
+#: videos, and the seed of the new videos' draws
+N_DELTA_CROSS = 500
+N_DELTA_PAIRS = 100
+DELTA_SEED = 11
 
 
-def gen_corpus(rng: np.random.Generator, n: int, clip: int = 512):
+def gen_corpus(
+    rng: np.random.Generator, n: int, clip: int = 512, median: float = MEDIAN_FRAMES
+):
     """Vectorised scene-model frames: (frames [F, 32] uint8, offsets [n+1])."""
     counts = np.clip(
-        np.rint(np.exp(rng.normal(np.log(MEDIAN_FRAMES), 0.9, n))), 1, clip
+        np.rint(np.exp(rng.normal(np.log(median), 0.9, n))), 1, clip
     ).astype(np.int64)
     offsets = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
@@ -93,7 +109,46 @@ def gen_corpus(rng: np.random.Generator, n: int, clip: int = 512):
     return frames, offsets
 
 
-def build_corpus(n: int, seed: int = 7, clip: int = 512, long_plants=(0, 0, 0)):
+def _reencode(rng: np.random.Generator, src: bytes) -> bytes:
+    """src with REENC_BITS random bits of every frame flipped."""
+    arr = np.frombuffer(src, dtype=np.uint8).reshape(-1, 32).copy()
+    pos = rng.integers(0, 256, (arr.shape[0], REENC_BITS))
+    for f in range(arr.shape[0]):  # planted pairs only — not corpus-scale
+        for pbit in pos[f]:
+            arr[f, pbit // 8] ^= np.uint8(1 << (pbit % 8))
+    return arr.tobytes()
+
+
+def plant_layout(n: int):
+    """build_corpus's plants in a library of n videos, before the long
+    plants: (re-encode pairs, half-clip pairs, the index range the empty
+    hashes are drawn from)."""
+    n_plant = min(N_PLANT, n // 20)
+    n_far = min(N_PLANT_FAR, n // 40)
+    n_clip = min(N_CLIP, n // 40)
+    plant_pairs = [(2 * kk, 2 * kk + 1) for kk in range(n_plant)]
+    far0 = 2 * n_plant
+    plant_pairs += [(far0 + kk, far0 + kk + n // 2) for kk in range(n_far)]
+    clip0 = far0 + n_far
+    clip_pairs = [(clip0 + 2 * kk, clip0 + 2 * kk + 1) for kk in range(n_clip)]
+    return plant_pairs, clip_pairs, (clip0 + 2 * n_clip, n - n // 2 - 1)
+
+
+def _expected(blob, pairs) -> dict:
+    """(a, b) and (b, a) -> the exact integer similarity of every pair
+    scoring >= MIN_SIM; blob(i) is video i's hash."""
+    expected = {}
+    for a, b in pairs:
+        s = int(matchHashBytes(blob(a), blob(b)))
+        if s >= MIN_SIM:
+            expected[(a, b)] = s
+            expected[(b, a)] = s
+    return expected
+
+
+def build_corpus(
+    n: int, seed: int = 7, clip: int = 512, long_plants=(0, 0, 0), median: float = MEDIAN_FRAMES
+):
     """The library with its plants: (blobs, expected, n_empty).
 
     ``long_plants``: how many long (adjacent, far, half-clip) pairs to add.
@@ -101,35 +156,18 @@ def build_corpus(n: int, seed: int = 7, clip: int = 512, long_plants=(0, 0, 0)):
     integer similarity of every planted pair scoring >= MIN_SIM.
     """
     rng = np.random.default_rng(seed)
-    frames, offsets = gen_corpus(rng, n, clip)
+    frames, offsets = gen_corpus(rng, n, clip, median)
     blobs = [frames[offsets[i] : offsets[i + 1]].tobytes() for i in range(n)]
     del frames
 
-    def reencode(src: bytes) -> bytes:
-        arr = np.frombuffer(src, dtype=np.uint8).reshape(-1, 32).copy()
-        pos = rng.integers(0, 256, (arr.shape[0], REENC_BITS))
-        for f in range(arr.shape[0]):  # planted pairs only — not corpus-scale
-            for pbit in pos[f]:
-                arr[f, pbit // 8] ^= np.uint8(1 << (pbit % 8))
-        return arr.tobytes()
-
-    n_plant = min(N_PLANT, n // 20)
-    n_far = min(N_PLANT_FAR, n // 40)
-    n_clip = min(N_CLIP, n // 40)
     n_empty = min(N_EMPTY, n // 50)
-    plant_pairs = [(2 * kk, 2 * kk + 1) for kk in range(n_plant)]
-    far0 = 2 * n_plant
-    plant_pairs += [(far0 + kk, far0 + kk + n // 2) for kk in range(n_far)]
-    clip0 = far0 + n_far
-    clip_pairs = [(clip0 + 2 * kk, clip0 + 2 * kk + 1) for kk in range(n_clip)]
+    plant_pairs, clip_pairs, empty_range = plant_layout(n)
     for a, b in plant_pairs:
-        blobs[b] = reencode(blobs[a])
+        blobs[b] = _reencode(rng, blobs[a])
     for a, b in clip_pairs:
         half = (len(blobs[a]) // 32 + 1) // 2 * 32
-        blobs[b] = reencode(blobs[a][:half])
-    empties = rng.choice(
-        np.arange(clip0 + 2 * n_clip, n - n // 2 - 1), size=n_empty, replace=False
-    )
+        blobs[b] = _reencode(rng, blobs[a][:half])
+    empties = rng.choice(np.arange(*empty_range), size=n_empty, replace=False)
     for e in empties:
         blobs[int(e)] = b""
 
@@ -153,17 +191,71 @@ def build_corpus(n: int, seed: int = 7, clip: int = 512, long_plants=(0, 0, 0)):
         adjacent_long = take(long_adjacent, 1, n)
         clip_long = take(long_clip, 1, n)
         for a, b in far_long + adjacent_long:
-            blobs[b] = reencode(blobs[a])
+            blobs[b] = _reencode(rng, blobs[a])
         for a, b in clip_long:
             half = (len(blobs[a]) // 32 + 1) // 2 * 32
-            blobs[b] = reencode(blobs[a][:half])
+            blobs[b] = _reencode(rng, blobs[a][:half])
         plant_pairs += far_long + adjacent_long
         clip_pairs += clip_long
 
-    expected = {}
-    for a, b in plant_pairs + clip_pairs:
-        s = int(matchHashBytes(blobs[a], blobs[b]))
-        if s >= MIN_SIM:
-            expected[(a, b)] = s
-            expected[(b, a)] = s
-    return blobs, expected, n_empty
+    return blobs, _expected(blobs.__getitem__, plant_pairs + clip_pairs), n_empty
+
+
+def build_delta(
+    blobs, n_new: int, n_cross: int = N_DELTA_CROSS, n_pairs: int = N_DELTA_PAIRS,
+    median: float = MEDIAN_FRAMES,
+):
+    """n_new new videos for the library ``blobs`` that build_corpus built
+    with the 512-frame clip and no long plants: (new_blobs, expected). New
+    video k has index len(blobs) + k.
+
+    - background: gen_corpus under DELTA_SEED at the library's profile
+      (``median``);
+    - ``n_cross`` re-encodes of library videos: new videos at every
+      (n_new // n_cross)-th position, their sources spread by a stride
+      over the library videos that no build_corpus plant or empty hash
+      touches, so that they fall early, in the middle and at the end;
+    - ``n_pairs`` pairs among the new videos, half adjacent (j, j + 1) and
+      half far (j, j + n_new // 2), on positions no other plant holds.
+
+    ``expected`` maps (a, b) AND (b, a) library-index pairs to the exact
+    integer similarity of every delta plant scoring >= MIN_SIM; with
+    build_corpus's own expected it is the whole library's after the delta.
+    """
+    n = len(blobs)
+    if n_cross > n_new or 2 * n_pairs + n_cross > n_new:
+        raise ValueError(f"{n_new} new videos cannot hold {n_cross} + 2 x {n_pairs} plants")
+    rng = np.random.default_rng(DELTA_SEED)
+    frames, offsets = gen_corpus(rng, n_new, median=median)
+    new = [frames[offsets[i] : offsets[i + 1]].tobytes() for i in range(n_new)]
+    del frames
+
+    plant_pairs, clip_pairs, _ = plant_layout(n)
+    touched = {i for pair in plant_pairs + clip_pairs for i in pair}
+    free = np.asarray([i for i in range(n) if i not in touched and blobs[i]], dtype=np.int64)
+    sources = free[np.linspace(0, len(free) - 1, n_cross).round().astype(np.int64)]
+    stride = n_new // n_cross
+    taken = set(range(0, n_cross * stride, stride))
+    pairs = [(int(src), n + k * stride) for k, src in enumerate(sources)]
+
+    def claim(start: int, offset: int) -> tuple[int, int]:
+        """The first free (j, j + offset) at or after start."""
+        j = start
+        while j in taken or j + offset in taken:
+            j += 1
+        if j + offset >= n_new:
+            raise ValueError(f"no room for a new pair at offset {offset}")
+        taken.update((j, j + offset))
+        return j, j + offset
+
+    n_adjacent = n_pairs // 2
+    new_pairs = [claim(k * (n_new // max(n_adjacent, 1)), 1) for k in range(n_adjacent)]
+    n_far = n_pairs - n_adjacent
+    half = n_new // 2
+    new_pairs += [claim(k * (half // max(n_far, 1)), half) for k in range(n_far)]
+    for src, dst in pairs:
+        new[dst - n] = _reencode(rng, blobs[src])
+    for a, b in new_pairs:
+        new[b] = _reencode(rng, new[a])
+    pairs += [(n + a, n + b) for a, b in new_pairs]
+    return new, _expected(lambda i: blobs[i] if i < n else new[i - n], pairs)

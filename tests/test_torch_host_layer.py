@@ -6,6 +6,8 @@ several processes start it at once on an empty build directory."""
 
 from __future__ import annotations
 
+import hashlib
+import importlib.util
 import re
 import shutil
 import subprocess
@@ -161,6 +163,80 @@ def test_scene_library_long_plants():
     assert len(changed) == 8  # the plants' targets, and nothing else
 
 
+#: sha256 of build_corpus(2_000, seed=7) (blobs, then the expected pairs,
+#: then the empty count) as it was before it took a median
+SCENE_LIBRARY_2000_DIGEST = "8954b95c4d57eb94e232278847390af383265346e4ccb057552c0cbff1afa7bd"
+
+
+def _library_digest(library) -> str:
+    blobs, expected, n_empty = library
+    h = hashlib.sha256()
+    for b in blobs:
+        h.update(len(b).to_bytes(4, "little"))
+        h.update(b)
+    for key in sorted(expected):
+        h.update(repr((key, expected[key])).encode())
+    h.update(str(n_empty).encode())
+    return h.hexdigest()
+
+
+def _sweep_scenes(monkeypatch, n: int, median: str):
+    """artifacts/sweep_scenes.py imported with N = n and HVD_SWEEP_MEDIAN =
+    median (both read at import)."""
+    monkeypatch.setattr(sys, "argv", ["sweep_scenes", str(n)])
+    monkeypatch.setenv("HVD_SWEEP_MEDIAN", median)
+    spec = importlib.util.spec_from_file_location(
+        f"sweep_scenes_median_{median}", REPO / "artifacts" / "sweep_scenes.py"
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("median", [48.0, 84.0])
+def test_scene_library_median(monkeypatch, median):
+    """At the median 48 (the default) build_corpus gives what it gave
+    before it took a median, byte for byte; at 84 (the mean-120 profile)
+    its frame counts, blobs and plants are those of
+    artifacts/sweep_scenes.py under HVD_SWEEP_MEDIAN=84."""
+    n = 2_000
+    got = scene_library.build_corpus(n, seed=7, median=median)
+    _, offsets = scene_library.gen_corpus(np.random.default_rng(7), n, median=median)
+    if median == 48.0:
+        assert _library_digest(got) == SCENE_LIBRARY_2000_DIGEST
+        assert 60 < np.diff(offsets).mean() < 80
+        return
+    sweep = _sweep_scenes(monkeypatch, n, "84")
+    _, sweep_offsets = sweep.gen_corpus(np.random.default_rng(7))
+    assert np.array_equal(offsets, sweep_offsets)
+    assert got == sweep.build_corpus(np.random.default_rng(7))
+    assert 100 < np.diff(offsets).mean() < 140
+
+
+def test_build_delta_plants_exactly_its_expected_pairs():
+    """Every pair of a new video with a library or new video that scores
+    >= MIN_SIM (matchHashBytes over all of them) is one of build_delta's
+    plants, with its similarity; re-encodes fall across the library, on
+    videos no library plant or empty hash touches."""
+    blobs, expected, _ = scene_library.build_corpus(400, seed=7)
+    new, delta = scene_library.build_delta(blobs, 80, n_cross=8, n_pairs=6)
+    n, corpus = len(blobs), blobs + new
+    found = {}
+    for i in range(n, len(corpus)):
+        for j in range(len(corpus)):
+            s = int(vpdq.matchHashBytes(corpus[i], corpus[j]))
+            if i != j and s >= scene_library.MIN_SIM:
+                found[(i, j)] = s
+    assert found == {(a, b): s for (a, b), s in delta.items() if a >= n}
+    sources = sorted(a for a, b in delta if a < n)
+    assert len(sources) == 8 and len({b for a, b in delta if a >= n and b >= n}) == 12
+    assert sources[0] < n // 4 and sources[-1] > 3 * n // 4
+    assert not set(sources) & {i for pair in expected for i in pair}
+    assert all(blobs[i] for i in sources)
+    again = scene_library.build_delta(blobs, 80, n_cross=8, n_pairs=6)
+    assert again == (new, delta)
+
+
 def test_native_library_builds_once_for_six_processes(tmp_path):
     """Six processes load a copy of the port's native package from an empty
     build directory at once: each loads the library, which was built once,
@@ -194,6 +270,7 @@ COPIES = {
         (r"python -m hydrus_video_deduplicator_tpu\.models", "python -m hydrus_video_deduplicator_tpu_torch.models"),
     ],
     "gui/__init__.py": [],
+    "native/tsan_stress.cpp": [],
     "typing_utils.py": [],
     "gui/gui.py": [
         (r"reference \(/\S+/reference/src/\n", "reference (upstream\nsrc/"),
@@ -220,9 +297,9 @@ COPIES = {
 
 @pytest.mark.parametrize("name", sorted(COPIES))
 def test_copied_file_differs_from_its_original_only_as_listed(name):
-    """The GUI, the Windows entry points, the CLIP converter and the typing
-    helpers are copies: the original with each listed difference applied,
-    once, is the copy."""
+    """The GUI, the Windows entry points, the CLIP converter, the typing
+    helpers and the native hasher's ThreadSanitizer stress are copies: the
+    original with each listed difference applied, once, is the copy."""
     text = (REPO / "hydrus_video_deduplicator_tpu" / name).read_text()
     for pattern, new in COPIES[name]:
         text, n = re.subn(pattern, lambda _m, new=new: new, text)
