@@ -163,7 +163,15 @@ Phases (each raises on failure; nothing is caught):
    checkout's name, inside the installed copy, and launched there (each
    run's launch counts come from the run's own interpreter at its exit,
    through a sitecustomize in a directory of its own on PYTHONPATH). It
-   prints the runs' stage-4 and whole-run seconds beside phase 2's.
+   prints the runs' stage-4 and whole-run seconds beside phase 2's;
+13. the port's benchmark as users run it: ``python3 bench_torch.py`` in
+   its own process (the kernels are built by then), whose last line must
+   hold every key of BENCH_KEYS, the card's name as torch names it,
+   positive rates and projections, and a launch of each of its three
+   kernels (the PDQ filter, the segment similarity kernel and the sweep);
+   it prints the benchmark's stderr, its filter ms beside phase 4's, its
+   sweep rate beside phase 1's, and each search measurement's bound. It
+   adds nothing to the last lines.
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
@@ -307,6 +315,15 @@ WHEEL_SOURCES = (
     "hydrusvideodeduplicator", "setup.py", "pyproject.toml", "README.md",
 )
 BUILD_OUTPUTS = ("__pycache__", "build", "_build", "*.so", "*.o")
+#: phase 13: the keys of bench_torch.py's last line, and its measurements
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "search_projected_1m_videos_sec",
+    "search_vs_60s_target", "search_projected_1m_mean71_sec", "search_mean71_vs_60s_target",
+    "measurements", "device", "launches",
+)
+BENCH_MEASUREMENTS = (
+    "pdq_hash_fused", "pdq_filter_kernel", "search_tile", "search_row_tile", "mean71_sweep",
+)
 #: the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -562,7 +579,7 @@ def phase1_kernel_vs_plain(blobs, dev):
         )
         result[tol] = {
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "frame_pairs": pairs,
         }
     report_work("1", *args, result[79]["ms"])
     return result
@@ -2260,6 +2277,61 @@ def phase12_installed(lib2, db2: str) -> None:
             f"{STAGE4_S[(2, 'auto')]:.3f} in this process; card: {card_line()}")
 
 
+def phase13_bench(sweep_timing: dict, pdq_timing: dict) -> None:
+    """bench_torch.py in its own process, its last line checked (module
+    docstring, phase 13); phase 1's tolerance-79 and phase 4's timings
+    for comparison."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the benchmark is another process on this card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_bench_") as tmp:
+        proc = run_checked([sys.executable, os.path.join(ROOT, "bench_torch.py")],
+                           os.path.join(tmp, "bench.log"), cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"phase 13 bench: {line}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    missing += [k for k in BENCH_MEASUREMENTS if k not in line.get("measurements", {})]
+    if missing:
+        raise AssertionError(f"phase 13: the benchmark's line lacks {missing}")
+    if line["device"].get("name") != torch.cuda.get_device_name(0):
+        raise AssertionError(f"phase 13: the benchmark ran on {line['device']}")
+    m = line["measurements"]
+    rates = {k: line[k] for k in ("value", "vs_baseline", "search_projected_1m_videos_sec",
+                                  "search_projected_1m_mean71_sec")}
+    rates.update({f"{name}.{k}": v for name, entry in m.items() for k, v in entry.items()
+                  if k.endswith("_per_s")})
+    bad = {k: v for k, v in rates.items() if not (isinstance(v, (int, float)) and v > 0)}
+    if bad:
+        raise AssertionError(f"phase 13: rates not positive: {bad}")
+    idle = [k for k in ("pdq_filter", "similarity_segments", "exists_mask_sweep")
+            if not line["launches"].get(k)]
+    if idle:
+        raise AssertionError(f"phase 13: kernels never launched: {idle} ({line['launches']})")
+    sweep, filt = m["mean71_sweep"], m["pdq_filter_kernel"]
+    phase1_rate = sweep_timing["frame_pairs"] / (sweep_timing["ms"] / 1e3)
+    log(f"phase 13: bench_torch.py exited 0 in {seconds:.1f} s: {line['value']:.1f} frames/s, "
+        f"1M projections {line['search_projected_1m_videos_sec']:.3f} s (8-frame videos) and "
+        f"{line['search_projected_1m_mean71_sec']:.3f} s (mean-71 stage A), one card; launches "
+        f"{line['launches']}")
+    log(f"phase 13: PDQ filter kernel {filt['median_ms']:.4f} ms median (phase 4: "
+        f"{pdq_timing['ms']:.4f} ms, {filt['median_ms'] / pdq_timing['ms'] - 1:+.1%}); sweep "
+        f"{sweep['frame_comparisons_per_s']:.4g} frame comparisons/s (phase 1 at tolerance 79: "
+        f"{phase1_rate:.4g} real pairs/s, {sweep['frame_comparisons_per_s'] / phase1_rate - 1:+.1%})")
+    for name in ("search_tile", "search_row_tile", "mean71_sweep"):
+        entry = m[name]
+        bound_ms, bound_by = bound(
+            entry["bytes"], OPS_PER_FRAME_PAIR * entry["frame_comparisons"], B1_OPS_PER_S
+        )
+        log(f"phase 13: {name} {entry['median_ms']:.4f} ms median ({entry['min_ms']:.4f}-"
+            f"{entry['max_ms']:.4f}, host {entry['host_ms']:.4f} ms a call), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {entry['median_ms'] / bound_ms:.2f}x; "
+            f"card: {line['device']['nvidia_smi']}")
+
+
 def main() -> int:
     import torch
 
@@ -2302,6 +2374,7 @@ def main() -> int:
     phase11_mesh(lib2, lib_none, db2, db_none)
     phase12_installed(lib2, db2)
     kept.cleanup()
+    phase13_bench(timing[79], pdq_timing)
     reference = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "hydrus_video_deduplicator_tpu")

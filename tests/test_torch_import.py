@@ -70,10 +70,13 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    """An AST scan of every module of the port, of chip_smoke.py and of the
-    tests of the installed port, which need no JAX either."""
-    files = sorted(PORT.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "test_torch_packaging.py"
+    """An AST scan of every module of the port, of the port's scripts at the
+    root (chip_smoke.py, the benchmarks bench_torch.py and
+    bench_search_torch.py, mma_rates.py) and of the tests of the installed
+    port, which need no JAX either."""
+    scripts = ("chip_smoke.py", "bench_torch.py", "bench_search_torch.py", "mma_rates.py")
+    files = sorted(PORT.rglob("*.py")) + [REPO / name for name in scripts] + [
+        REPO / "tests" / "test_torch_packaging.py"
     ]
     assert len(files) >= 40
     bad = {
