@@ -40,6 +40,12 @@ Phases (each raises on failure; nothing is caught):
    100) // 2 = 350, the search cache must be fully marked, a re-run must
    mark 0, and the sweep must have launched and no other kernel; its
    stage-2 and stage-4 seconds print beside phase 2's;
+2c. the mean-200 profile: N_MEAN200 = 10,000 videos of the seed-7 scene
+   library at the median 160 (about 2.07M frames; the JAX package's
+   artifacts/library_1m_fresh_mean200_r05.log at a hundredth of its size)
+   through stage 2 and stage 4 as phase 2, with search_prefilter="auto":
+   exact, a re-run marking 0, the sweep launched and no other kernel; its
+   stage-2 and stage-4 seconds print beside phase 2's;
 3. the CLI, ``python -m hydrus_video_deduplicator_tpu_torch`` (run in this
    process, so its kernel launches are counted), on the test corpus: with
    --hash-backend native --search-backend gpu --search-prefilter reps,
@@ -175,7 +181,7 @@ Phases (each raises on failure; nothing is caught):
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
-count over the run of the path it serves: phases 2 and 2b for the sweep, phase 5
+count over the run of the path it serves: phases 2, 2b and 2c for the sweep, phase 5
 for the PDQ filter, phase 7 for the similarity kernel and, read from the
 same counters, for the counts mode (kernel 6) and the every-step sweep
 (kernel 2): these serve no path of the program, so theirs is 0; phase 6
@@ -202,11 +208,21 @@ library size of phases 2, 7, 8 and the "auto" run of phase 9 (default
     python3 -c "import sys, chip_smoke as c; \
 sys.exit(c.stage4_orchestrator(2, *c.build_library(1_000_000), {'exists_mask_sweep'}) is None)"
 
-Phase 2 at 1M with the mean-120 profile (median 84), the JAX package's
-artifacts/library_1m_fresh_mean120_r05.log (1,535 pairs):
+The JAX package's fresh-library rehearsal (artifacts/library_1m_fresh.py),
+stage 2 and stage 4 of a never-searched library with the JAX log's lines
+(``fresh_rehearsal``; it checks first that the temporary directory has
+160 bytes free for each frame, about twice what the database takes). At
+1M: the mean-120 profile (artifacts/library_1m_fresh_mean120_r05.log,
+1,535 pairs; 120.5M frames, 19.3 GB asked), the mean-200 one
+(artifacts/library_1m_fresh_mean200_r05.log, 1,511 pairs; 206.7M frames,
+33.1 GB asked, a 15.95 GB database; 18 minutes on the card's machine, the
+corpus build included), and the long tail (videos of 513-1024 frames on
+kernel 5; 71.8M frames, 11.5 GB asked, a 7.10 GB database; 12 minutes):
 
-    python3 -c "import sys, chip_smoke as c; sys.exit(c.stage4_orchestrator(2, \
-*c.build_library(1_000_000, median=84.0), {'exists_mask_sweep'}) is None)"
+    python3 -c "import chip_smoke as c; c.fresh_rehearsal(1_000_000, median=84.0)"
+    python3 -c "import chip_smoke as c; c.fresh_rehearsal(1_000_000, median=160.0)"
+    python3 -c "import chip_smoke as c; c.fresh_rehearsal(1_000_000, clip=1024, \
+long_plants=(600, 300, 300))"
 
 The JAX package's library rehearsal (artifacts/library_10m_rehearsal.py:
 8-frame random videos, the corpus drained by stage 2 and marked searched,
@@ -275,12 +291,23 @@ MMA_OPCODES = re.compile(r"\b(IGMMA|HGMMA|QGMMA|IMMA|HMMA|BMMA)\b")
 YARDSTICK_CHUNK_ENTRIES = 1 << 28
 #: phase 2b: the new videos added to phase 2's searched library
 N_DELTA = 10_000
+#: phase 2c: the mean-200 library's size and median (the JAX package's
+#: artifacts/library_1m_fresh_mean200_r05.log at 1M)
+N_MEAN200 = 10_000
+MEAN200_MEDIAN = 160.0
+#: fresh_rehearsal: the free bytes it asks for each frame before it builds
+#: anything, artifacts/library_1m_fresh_mean200_r05.log's 33.05 GB over
+#: 206.7M frames; the port's fresh database of that library holds 15.95 GB
+#: (77 bytes a frame), so this leaves a margin of two
+FRESH_BYTES_PER_FRAME = 160
 #: delta_rehearsal (artifacts/library_10m_rehearsal.py): frames a video and
 #: planted new videos
 REHEARSAL_FRAMES = 8
 REHEARSAL_PLANTS = 1_000
-#: phase 2, 2b, 7, 9 and 11: stage-4 search+mark seconds by (phase,
-#: search_prefilter); phases 5 and 11: stage-1 (seconds, hashed frames)
+#: phases 2, 2b, 2c, 7, 9 and 11: stage-2 and stage-4 search+mark seconds
+#: by (phase, search_prefilter); phases 5 and 11: stage-1 (seconds, hashed
+#: frames)
+STAGE2_S: dict = {}
 STAGE4_S: dict = {}
 STAGE1_S: dict = {}
 #: phase 11: the members on one card when only one is visible, and the
@@ -404,25 +431,47 @@ def phase0_build():
         _build.load_library(name)
 
 
+def peak_rss() -> str:
+    """This process's peak resident set so far."""
+    import resource
+
+    return f"peak RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB"
+
+
 def build_library(n: int, clip: int = 512, long_plants=(0, 0, 0), median: float = 48.0):
     """The seed-7 scene library of n videos, frames clipped at ``clip``, at
-    the frame-count profile of ``median`` (48: mean 71; 84: mean 120):
-    (blobs, expected undirected pairs, empty hashes, min_sim)."""
+    the frame-count profile of ``median`` (48: mean 71; 84: mean 120; 160:
+    mean 200): (blobs, expected undirected pairs, empty hashes, min_sim).
+    Logs the frame profile and the planted pairs in the words of the JAX
+    package's artifacts/sweep_scenes.py."""
+    import numpy as np
+
     from hydrus_video_deduplicator_tpu_torch import scene_library as sl
 
+    counts = sl.frame_counts(np.random.default_rng(7), n, clip, median)
+    log(
+        f"frame profile: mean {counts.mean():.1f}, median {np.median(counts):.0f}, "
+        f"p90 {np.percentile(counts, 90):.0f}, max {counts.max()}, total {counts.sum()}"
+    )
     t0 = time.perf_counter()
-    blobs, expected, n_empty = sl.build_corpus(
-        n, seed=7, clip=clip, long_plants=long_plants, median=median
+    blobs, expected, n_empty, planted = sl.build_corpus(
+        n, seed=7, clip=clip, long_plants=long_plants, median=median, with_plants=True
     )
     pairs = {(a, b) for (a, b) in expected if a < b}
+    log(
+        f"corpus built in {time.perf_counter() - t0:.1f}s; planted pairs >= {sl.MIN_SIM}: "
+        f"{len(pairs)}/{len(planted)}"
+    )
     lens = [len(b) // 32 for b in blobs]
     n_long = sum(1 for k in lens if k > sl.SEG_MAX_FRAMES)
     long_pairs = sum(1 for a, b in pairs if max(lens[a], lens[b]) > sl.SEG_MAX_FRAMES)
+    n_short_plants = sum(map(len, sl.plant_layout(n)[:2]))
     log(
-        f"library: N={n}, clip {clip}: {sum(lens)} frames (mean {sum(lens) / n:.1f}, max "
-        f"{max(lens)}), {n_long} videos of more than {sl.SEG_MAX_FRAMES} frames, {len(pairs)} "
-        f"planted pairs >= {sl.MIN_SIM}, {long_pairs} of them with a long side; "
-        f"{time.perf_counter() - t0:.1f} s to build"
+        f"library: N={n}, clip {clip}, median {median:g}: {sum(lens)} frames after the plants "
+        f"(mean {sum(lens) / n:.1f}, max {max(lens)}), {n_long} videos of more than "
+        f"{sl.SEG_MAX_FRAMES} frames, {len(planted) - n_short_plants} long plants placed of "
+        f"{sum(long_plants)} asked, {long_pairs} planted pairs >= {sl.MIN_SIM} with a long side; "
+        f"{peak_rss()}"
     )
     return blobs, pairs, n_empty, sl.MIN_SIM
 
@@ -747,6 +796,8 @@ def search_timers(kernels: set) -> StageTimers:
     timers.wrap(GpuSearchEngine, "_stage_columns", "column staging")
     timers.wrap(GpuSearchEngine, "_segment_route", "segment route (launches + drain)")
     timers.wrap(GpuSearchEngine, "_bucket_pair", "bucketed route (staging, launches, hits)")
+    timers.wrap(engine.CorpusIndex, "bucket_arrays", "bucket packing (host)")
+    timers.wrap(engine, "_emptied", "complement inputs (host)")
     timers.wrap(pair_verify, "verify_pairs", "stage B (verify)")
     timers.wrap(
         engine, "_with_similarities", "hit similarities (matchHashBytes)", count_pairs=True
@@ -757,11 +808,16 @@ def search_timers(kernels: set) -> StageTimers:
     return timers
 
 
-def log_search_timers(phase, timers: StageTimers, kernels: set) -> None:
-    """Prints what search_timers measured."""
+def log_search_timers(phase, timers: StageTimers, kernels: set, total: float | None = None) -> None:
+    """Prints what search_timers measured; with ``total``, the seconds of
+    the run they were taken in, also what no timer covered (SQLite, the
+    marking and the rest: the timed stages do not nest)."""
     for label, sec in timers.seconds.items():
         n = f", {timers.pairs[label]} pairs" if label in timers.pairs else ""
         log(f"phase {phase}   {label}: {sec:.3f} s{n}")
+    if total is not None:
+        rest = total - sum(timers.seconds.values())
+        log(f"phase {phase}   remainder (SQLite, marking and the rest): {rest:.3f} s")
     for name in sorted(kernels):
         kernel_ms = timers.kernel_ms(name)
         done = timers.work_done(name)
@@ -811,8 +867,9 @@ def unsearched_files(db, search_threshold: int) -> int:
 
 
 def stage4_orchestrator(
-    phase: int, blobs, expected, n_empty, min_sim, kernels: set, mesh=None,
-    save_db: str | None = None, from_db: str | None = None, after=None, **kwargs
+    phase, blobs, expected, n_empty, min_sim, kernels: set, mesh=None,
+    save_db: str | None = None, from_db: str | None = None, after=None,
+    workdir: str | None = None, release_blobs: bool = False, **kwargs
 ):
     """Stage 4 of a fresh library through deduplicate(skip_hashing=True)
     with the port's orchestrator (kwargs go to its constructor): the marked
@@ -825,9 +882,15 @@ def stage4_orchestrator(
     instead of filling the queue and running stage 2 (phase 11 so reuses
     the libraries of phases 2 and 9). ``after(deduper, db, server,
     seconds)`` runs on the live database once the re-run has passed
-    (phase 2b), with this run's stage-2 and stage-4 seconds. Returns the
-    launch counts of every search kernel; records the stage-4 seconds in
-    STAGE4_S[(phase, search_prefilter)]."""
+    (phase 2b), with this run's stage-2, maintenance and stage-4 seconds
+    and its database's GB. The database lies in a
+    temporary directory under ``workdir`` (default: tempfile's);
+    ``release_blobs`` empties the list ``blobs`` once they are queued, so
+    stage 4 streams them from SQLite alone, as a user's run does. The
+    stage lines use the words of the JAX package's
+    artifacts/library_1m_fresh.py. Returns the launch counts of every
+    search kernel; records the stage-2 and stage-4 seconds in
+    STAGE2_S and STAGE4_S under (phase, search_prefilter)."""
     import torch
 
     from hydrus_video_deduplicator_tpu_torch import dedup
@@ -843,7 +906,7 @@ def stage4_orchestrator(
     os.environ.setdefault("HVD_SQLITE_CACHE_MB", "1024")
     server = FakeHydrus({})
     server.start()
-    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_") as workdir:
+    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_", dir=workdir) as workdir:
         try:
             DedupeDB.set_db_dir(workdir)
             if from_db:
@@ -864,6 +927,9 @@ def stage4_orchestrator(
                     )
                 db.commit()
                 t_queue = time.perf_counter() - t0
+                log(f"phase {phase}: queue filled: {n_videos} rows in {t_queue:.3f}s; {peak_rss()}")
+                if release_blobs:
+                    blobs.clear()
 
             deduper = dedup.HydrusVideoDeduplicator(
                 db, client=client, search_backend="gpu", **kwargs
@@ -883,7 +949,19 @@ def stage4_orchestrator(
             if save_db:
                 shutil.copyfile(DedupeDB.get_db_file_path(), save_db)
             n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
-            assert n_files == n_videos, n_files
+            left = db.execute("SELECT count(*) FROM phashed_file_queue").fetchone()[0]
+            if from_db:
+                log(f"phase {phase}: from {os.path.basename(from_db)}: files={n_files}")
+            else:
+                log(
+                    f"phase {phase}: STAGE2: drained {n_videos} rows in {t_stage2:.3f}s "
+                    f"({n_videos / t_stage2:.0f} rows/s), maintenance {t_maint:.3f}s; "
+                    f"files={n_files} queue_left={left}; {peak_rss()}"
+                )
+                STAGE2_S[(phase, kwargs.get("search_prefilter", "auto"))] = t_stage2
+            db_gb = os.path.getsize(DedupeDB.get_db_file_path()) / 1e9
+            log(f"phase {phase}: DB size {db_gb:.2f}G")
+            assert n_files == n_videos and left == 0, (n_files, left)
 
             timers = search_timers(kernels)
             per_member = {}
@@ -905,16 +983,22 @@ def stage4_orchestrator(
             t_search = time.perf_counter() - t0
             STAGE4_S[(phase, kwargs.get("search_prefilter", "auto"))] = t_search
             launches = search_launches()
+            log(
+                f"phase {phase}: STAGE4: fresh deduplicate() at {n_videos}x{n_videos}: reported "
+                f"{pairs} pairs in {t_search:.3f}s; {peak_rss()}"
+            )
 
             idx = {file_hash(i): i for i in range(n_videos)}
             got = {tuple(sorted((idx[a], idx[b]))) for a, b in server.relationships}
             unsearched = unsearched_files(db, search_threshold)
             log(
-                f"phase {phase}: N={n_videos} ({n_empty} empty hashes), {kwargs}: marked "
-                f"{len(got)} pairs (planted {len(expected)}), missing {len(expected - got)}, "
-                f"extras {len(got - expected)}, unsearched left {unsearched}, reported {pairs}; "
-                f"kernel launches {launches}; torch.matmul calls inside the bucketed route "
-                f"{matmuls[0]}"
+                f"phase {phase}: verify: marked {len(got)} pairs (expected {len(expected)}); "
+                f"missing {len(expected - got)}, extras {len(got - expected)}; unsearched left "
+                f"{unsearched}"
+            )
+            log(
+                f"phase {phase}: N={n_videos} ({n_empty} empty hashes), {kwargs}: kernel "
+                f"launches {launches}; torch.matmul calls inside the bucketed route {matmuls[0]}"
             )
             if got != expected or pairs != len(expected):
                 raise AssertionError(f"phase {phase}: the marked pairs differ from the planted set")
@@ -930,19 +1014,15 @@ def stage4_orchestrator(
             t0 = time.perf_counter()
             pairs2 = deduper.deduplicate(skip_hashing=True)
             t_rerun = time.perf_counter() - t0
+            log(f"phase {phase}: re-run: {pairs2} pairs in {t_rerun:.3f}s (expected 0)")
             if pairs2 != 0:
                 raise AssertionError(f"phase {phase}: re-run marked {pairs2} pairs")
-            before = (
-                f"from {os.path.basename(from_db)}" if from_db else
-                f"queue fill {t_queue:.3f}, stage 2 {t_stage2:.3f}, maintenance {t_maint:.3f}"
-            )
-            log(
-                f"phase {phase} stage times (s): {before}, stage 4 search+mark "
-                f"{t_search:.3f}, re-run {t_rerun:.3f}"
-            )
-            log_search_timers(phase, timers, kernels)
+            log_search_timers(phase, timers, kernels, total=t_search)
             if after is not None:
-                after(deduper, db, server, {"stage 2": t_stage2, "stage 4": t_search})
+                after(deduper, db, server, {
+                    "stage 2": t_stage2, "maintenance": t_maint, "DB GB": db_gb,
+                    "stage 4": t_search,
+                })
             db.close()
         finally:
             server.stop()
@@ -1067,8 +1147,6 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
     segment similarity kernel must have launched and no other search
     kernel. Prints each part's seconds, kernel 3's launches and device
     time, and the peak host RSS. Not part of main()."""
-    import resource
-
     import numpy as np
     import torch
 
@@ -1084,9 +1162,6 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
     stride = max(1, n_corpus // (n_plant + 1))
     frame_bytes = REHEARSAL_FRAMES * 32
     search_threshold = vptree.fix_vpdq_similarity(THRESHOLD)
-
-    def rss() -> str:
-        return f"peak RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB"
 
     def new_hash(k: int) -> str:
         return f"{k:016x}" + "ff" + "00" * 23
@@ -1117,7 +1192,7 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
                 if (i0 // 100_000) % 10 == 9:
                     db.commit()
             db.commit()
-            log(f"delta rehearsal: corpus queued in {time.perf_counter() - t0:.3f} s; {rss()}")
+            log(f"delta rehearsal: corpus queued in {time.perf_counter() - t0:.3f} s; {peak_rss()}")
 
             deduper = dedup.HydrusVideoDeduplicator(db, client=client, search_backend="gpu")
             deduper.threshold = THRESHOLD
@@ -1132,7 +1207,7 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
             n_files = db.execute("SELECT count(*) FROM files").fetchone()[0]
             log(f"delta rehearsal: stage 2 drained the corpus in {t_stage2:.3f} s "
                 f"({n_corpus / t_stage2:.0f} rows/s), files {n_files}, database "
-                f"{os.path.getsize(DedupeDB.get_db_file_path()) / 1e9:.2f} GB; {rss()}")
+                f"{os.path.getsize(DedupeDB.get_db_file_path()) / 1e9:.2f} GB; {peak_rss()}")
             if n_files != n_corpus:
                 raise AssertionError(f"delta rehearsal: {n_files} files after stage 2")
             t0 = time.perf_counter()
@@ -1175,7 +1250,7 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
             log(f"delta rehearsal: deduplicate(skip_hashing=True) at {n_new} x {n_corpus + n_new}: "
                 f"{t_run:.3f} s, reported {pairs}; marked {len(got)} pairs (planted {len(planted)}), "
                 f"missing {len(planted - got)}, extras {len(got - planted)}, unsearched left "
-                f"{unsearched}; kernel launches {launches}; {rss()}")
+                f"{unsearched}; kernel launches {launches}; {peak_rss()}")
             log_search_timers("rehearsal", timers, kernels)
             if got != planted or pairs != n_plant // 2:
                 raise AssertionError("delta rehearsal: the marked pairs or the count are not the plants'")
@@ -1185,12 +1260,92 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
             t0 = time.perf_counter()
             pairs2 = deduper.deduplicate(skip_hashing=True)
             log(f"delta rehearsal: re-run {time.perf_counter() - t0:.3f} s, marked {pairs2}; "
-                f"{rss()}; card: {card_line()}")
+                f"{peak_rss()}; card: {card_line()}")
             if pairs2 != 0:
                 raise AssertionError(f"delta rehearsal: the re-run marked {pairs2} pairs")
             db.close()
         finally:
             server.stop()
+
+
+def phase2c_mean200() -> int:
+    """Phase 2c, the mean-200 profile: the seed-7 scene library of N_MEAN200
+    videos at the median MEAN200_MEDIAN (the JAX package's
+    artifacts/library_1m_fresh_mean200_r05.log at a hundredth of its size)
+    through stage4_orchestrator with search_prefilter="auto", held as phase
+    2 is: the planted set, the cache fully marked, a re-run marking 0, the
+    sweep launched and no other search kernel. Prints its stage-2 and
+    stage-4 seconds beside phase 2's and its whole time. Returns the
+    sweep's launches."""
+    t0 = time.perf_counter()
+    lib = build_library(N_MEAN200, median=MEAN200_MEDIAN)
+    launches = stage4_orchestrator("2c", *lib, {"exists_mask_sweep"}, search_prefilter="auto")
+    log(
+        f"phase 2c stage times (s), N={N_MEAN200} at the mean-200 profile: stage 2 "
+        f"{STAGE2_S[('2c', 'auto')]:.3f} (phase 2, N={N_VIDEOS} at mean 71: "
+        f"{STAGE2_S[(2, 'auto')]:.3f}), stage 4 search+mark {STAGE4_S[('2c', 'auto')]:.3f} "
+        f"(phase 2: {STAGE4_S[(2, 'auto')]:.3f}); phase 2c in all {time.perf_counter() - t0:.3f}"
+    )
+    return launches["exists_mask_sweep"]
+
+
+def fresh_rehearsal(
+    n: int, median: float = 48.0, clip: int = 512, long_plants=(0, 0, 0),
+    workdir: str | None = None,
+) -> None:
+    """The JAX package's fresh-library rehearsal
+    (artifacts/library_1m_fresh.py) through the port on the card: the
+    seed-7 scene library of n videos (``build_library``) queued into a
+    fresh database under ``workdir`` (default: tempfile's), stage 2,
+    maintenance and deduplicate(skip_hashing=True) with
+    search_prefilter="auto" against a fake Hydrus server
+    (``stage4_orchestrator``, the blobs dropped once queued). It raises
+    before building anything unless ``workdir`` has FRESH_BYTES_PER_FRAME
+    bytes free for each frame of the library, and then unless the marked
+    set is the planted set, the search cache is fully marked, a re-run
+    marks 0, the sweep launched and, with clip above 512, the bucketed
+    similarity kernel too, and no other search kernel. It prints the JAX
+    log's lines in its words and order (frame profile, planted pairs,
+    queue filled, STAGE2, DB size, STAGE4, verify, re-run, SUMMARY), the
+    stage split of search_timers, each kernel's launches and device time
+    and the peak host RSS. Not part of main()."""
+    import numpy as np
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch import scene_library as sl
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("fresh_rehearsal: CUDA is not available")
+    workdir = workdir or tempfile.gettempdir()
+    frames = int(sl.frame_counts(np.random.default_rng(7), n, clip, median).sum())
+    need, free = FRESH_BYTES_PER_FRAME * frames, shutil.disk_usage(workdir).free
+    log(
+        f"fresh rehearsal: N={n}, median {median:g}, clip {clip}, long plants {long_plants}: "
+        f"{frames} frames, {need / 1e9:.2f} GB asked ({FRESH_BYTES_PER_FRAME} bytes a frame), "
+        f"{free / 1e9:.2f} GB free under {workdir}; card: {card_line()}"
+    )
+    if need > free:
+        raise RuntimeError(
+            f"fresh_rehearsal: the database needs about {need / 1e9:.2f} GB, {workdir} has "
+            f"{free / 1e9:.2f} GB free"
+        )
+    blobs, pairs, n_empty, min_sim = build_library(n, clip, long_plants, median)
+    kernels = {"exists_mask_sweep"}
+    if clip > sl.SEG_MAX_FRAMES:
+        kernels.add("similarity_block")
+    seconds: dict = {}
+    stage4_orchestrator(
+        "fresh", blobs, pairs, n_empty, min_sim, kernels, after=lambda *a: seconds.update(a[-1]),
+        workdir=workdir, release_blobs=True, search_prefilter="auto",
+    )
+    total = seconds["stage 2"] + seconds["maintenance"] + seconds["stage 4"]
+    log(
+        f"SUMMARY: fresh {n}-video library (scene profile, median {median:g}, clip {clip}, "
+        f"{n_empty} empty): stage2 {seconds['stage 2']:.3f}s, maintenance "
+        f"{seconds['maintenance']:.3f}s, search+mark {seconds['stage 4']:.3f}s ({len(pairs)} "
+        f"pairs marked, exact), total {total:.3f}s on one card; DB size {seconds['DB GB']:.2f}G; "
+        f"{peak_rss()}; card: {card_line()}. CORRECTNESS: exact"
+    )
 
 
 def phase3_cli():
@@ -1965,28 +2120,7 @@ def phase11_choose_mesh():
 
 
 def mesh_turns() -> None:
-    """Phase 2 at 1M with the mean-120 profile (median 84), the JAX package's
-artifacts/library_1m_fresh_mean120_r05.log (1,535 pairs):
-
-    python3 -c "import sys, chip_smoke as c; sys.exit(c.stage4_orchestrator(2, \
-*c.build_library(1_000_000, median=84.0), {'exists_mask_sweep'}) is None)"
-
-The JAX package's library rehearsal (artifacts/library_10m_rehearsal.py:
-8-frame random videos, the corpus drained by stage 2 and marked searched,
-then new videos with 1,000 planted re-encodes through one deduplicate();
-``auto`` declines the prune, so kernel 3 and the host similarities run),
-at 1M + 100k (about 3 minutes on the card's machine) and at its own
-10M + 100k (about 25 minutes, 8 GB of SQLite in the temporary directory):
-
-    python3 -c "import chip_smoke as c; c.delta_rehearsal(1_000_000, 100_000)"
-    python3 -c "import chip_smoke as c; c.delta_rehearsal(10_000_000, 100_000)"
-
-Phases 0, 2 and 2b alone:
-
-    python3 -c "import chip_smoke as c; c.phase0_build(); lib = c.build_library(100_000); \
-c.stage4_orchestrator(2, *lib, {'exists_mask_sweep'}, after=lambda *s: c.phase2b_delta(lib, *s))"
-
-Phase 11's mesh against one device in turns (one, mesh, mesh, one),
+    """Phase 11's mesh against one device in turns (one, mesh, mesh, one),
     each a fresh run as its phase makes it: stage 4 of phase 2's library
     (auto) and of phase 9's N_NONE library (none), then stage 1 of phase
     10's 400 videos. "One device" is a one-member mesh on cuda:0, so the
@@ -2352,6 +2486,7 @@ def main() -> int:
         2, *lib2, {"exists_mask_sweep"}, save_db=db2,
         after=lambda *state: delta_launches.append(phase2b_delta(lib2, *state)),
     )["exists_mask_sweep"] + delta_launches[0]
+    sweep_launches += phase2c_mean200()
     phase3_cli()
     pdq_timing = phase4_pdq_kernel_vs_plain(dev)
     pdq_launches = phase5_stage1()

@@ -188,6 +188,13 @@ def state_from_jax(col_state: dict) -> dict:
     return out
 
 
+def _emptied(phashes, keep: set) -> list[bytes]:
+    """``phashes`` as a list with every video whose index is not in ``keep``
+    emptied (an empty blob matches nothing): the inputs of the pruned
+    search's complement sweeps. Reads only the kept videos' blobs."""
+    return [phashes[i] if i in keep else b"" for i in range(len(phashes))]
+
+
 def _with_similarities(hits, row_phashes, all_phashes) -> list[tuple[int, int, int]]:
     """(row, col, integer similarity) for hit (row, col) pairs: native
     matchHashBytes, the kernel's own value by construction. DB-backed
@@ -563,27 +570,18 @@ class GpuSearchEngine:
         long_rows = set(np.nonzero(row_counts > seg.SEG_MAX_FRAMES)[0].tolist())
         long_cols = set(np.nonzero(col_counts > seg.SEG_MAX_FRAMES)[0].tolist())
         if long_rows:
-            masked = [
-                row_phashes[i] if i in long_rows else b"" for i in range(len(row_phashes))
-            ]
             out.extend(
                 self.find_pairs(
-                    masked, all_phashes, min_int_similarity,
+                    _emptied(row_phashes, long_rows), all_phashes, min_int_similarity,
                     col_state=state.setdefault("prune_long_rows", {}),
                     col_limit=col_limit,
                 )
             )
         if long_cols:
-            masked_rows = [
-                row_phashes[i] if (i not in long_rows and row_counts[i] >= 1) else b""
-                for i in range(len(row_phashes))
-            ]
-            masked_cols = [
-                all_phashes[j] if j in long_cols else b"" for j in range(len(all_phashes))
-            ]
             out.extend(
                 self.find_pairs(
-                    masked_rows, masked_cols, min_int_similarity,
+                    _emptied(row_phashes, set(seg_row_idx.tolist())),
+                    _emptied(all_phashes, long_cols), min_int_similarity,
                     col_state=state.setdefault("prune_long_cols", {}),
                     col_limit=col_limit,
                 )

@@ -63,13 +63,22 @@ N_DELTA_PAIRS = 100
 DELTA_SEED = 11
 
 
+def frame_counts(
+    rng: np.random.Generator, n: int, clip: int = 512, median: float = MEDIAN_FRAMES
+) -> np.ndarray:
+    """The frame count of each of n videos, gen_corpus's first draw from
+    ``rng``: with a fresh generator of the same seed, the counts of the
+    library it generates, before any plant."""
+    return np.clip(
+        np.rint(np.exp(rng.normal(np.log(median), 0.9, n))), 1, clip
+    ).astype(np.int64)
+
+
 def gen_corpus(
     rng: np.random.Generator, n: int, clip: int = 512, median: float = MEDIAN_FRAMES
 ):
     """Vectorised scene-model frames: (frames [F, 32] uint8, offsets [n+1])."""
-    counts = np.clip(
-        np.rint(np.exp(rng.normal(np.log(median), 0.9, n))), 1, clip
-    ).astype(np.int64)
+    counts = frame_counts(rng, n, clip, median)
     offsets = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     f_total = int(offsets[-1])
@@ -147,11 +156,15 @@ def _expected(blob, pairs) -> dict:
 
 
 def build_corpus(
-    n: int, seed: int = 7, clip: int = 512, long_plants=(0, 0, 0), median: float = MEDIAN_FRAMES
+    n: int, seed: int = 7, clip: int = 512, long_plants=(0, 0, 0), median: float = MEDIAN_FRAMES,
+    with_plants: bool = False,
 ):
-    """The library with its plants: (blobs, expected, n_empty).
+    """The library with its plants: (blobs, expected, n_empty), and with
+    ``with_plants`` a fourth element, every planted (a, b) pair in the
+    order they were placed, those scoring below MIN_SIM too.
 
-    ``long_plants``: how many long (adjacent, far, half-clip) pairs to add.
+    ``long_plants``: how many long (adjacent, far, half-clip) pairs to add;
+    fewer are placed where the library holds too few long videos.
     ``expected`` maps (a, b) AND (b, a) video-index pairs to the exact
     integer similarity of every planted pair scoring >= MIN_SIM.
     """
@@ -198,7 +211,9 @@ def build_corpus(
         plant_pairs += far_long + adjacent_long
         clip_pairs += clip_long
 
-    return blobs, _expected(blobs.__getitem__, plant_pairs + clip_pairs), n_empty
+    planted = plant_pairs + clip_pairs
+    expected = _expected(blobs.__getitem__, planted)
+    return (blobs, expected, n_empty, planted) if with_plants else (blobs, expected, n_empty)
 
 
 def build_delta(

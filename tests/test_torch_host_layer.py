@@ -193,24 +193,28 @@ def _sweep_scenes(monkeypatch, n: int, median: str):
     return module
 
 
-@pytest.mark.parametrize("median", [48.0, 84.0])
+#: build_corpus's median -> the range of its mean frame count
+MEDIAN_MEANS = {48.0: (60, 80), 84.0: (100, 140), 160.0: (180, 230)}
+
+
+@pytest.mark.parametrize("median", sorted(MEDIAN_MEANS))
 def test_scene_library_median(monkeypatch, median):
     """At the median 48 (the default) build_corpus gives what it gave
     before it took a median, byte for byte; at 84 (the mean-120 profile)
-    its frame counts, blobs and plants are those of
-    artifacts/sweep_scenes.py under HVD_SWEEP_MEDIAN=84."""
+    and 160 (the mean-200 one) its frame counts, blobs and plants are
+    those of artifacts/sweep_scenes.py under HVD_SWEEP_MEDIAN=84 or 160."""
     n = 2_000
     got = scene_library.build_corpus(n, seed=7, median=median)
     _, offsets = scene_library.gen_corpus(np.random.default_rng(7), n, median=median)
+    low, high = MEDIAN_MEANS[median]
+    assert low < np.diff(offsets).mean() < high
     if median == 48.0:
         assert _library_digest(got) == SCENE_LIBRARY_2000_DIGEST
-        assert 60 < np.diff(offsets).mean() < 80
         return
-    sweep = _sweep_scenes(monkeypatch, n, "84")
+    sweep = _sweep_scenes(monkeypatch, n, f"{median:g}")
     _, sweep_offsets = sweep.gen_corpus(np.random.default_rng(7))
     assert np.array_equal(offsets, sweep_offsets)
     assert got == sweep.build_corpus(np.random.default_rng(7))
-    assert 100 < np.diff(offsets).mean() < 140
 
 
 def test_build_delta_plants_exactly_its_expected_pairs():

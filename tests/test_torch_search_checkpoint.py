@@ -37,7 +37,7 @@ from hydrus_video_deduplicator_tpu.dedup import HydrusVideoDeduplicator as JaxDe
 from hydrus_video_deduplicator_tpu.parallel.engine import TpuSearchEngine
 from hydrus_video_deduplicator_tpu_torch import entrypoint, scene_library
 from hydrus_video_deduplicator_tpu_torch.client import HVDClient
-from hydrus_video_deduplicator_tpu_torch.db import DedupeDB
+from hydrus_video_deduplicator_tpu_torch.db import DedupeDB, vptree
 from hydrus_video_deduplicator_tpu_torch.dedup import HydrusVideoDeduplicator
 from hydrus_video_deduplicator_tpu_torch.ops import reps as reps_mod
 from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
@@ -365,3 +365,62 @@ def test_engine_sweeps_new_rows_against_a_searched_prefix(delta_library, pruned)
     assert sorted(got) == sorted(triangle)
     assert any(j < n != i for i, j, _ in got)  # hits against the searched prefix
     assert np.all(np.asarray([i for i, _, _ in got]) >= n)
+
+
+# -- a fresh library, through both packages' main() -------------------------
+
+#: the fresh libraries held against the JAX orchestrator: the mean-200
+#: profile (median 160), and the 1024-frame clip with long plants, pairs
+#: with a 513-1024-frame side (the pruned search's long-video complements)
+FRESH_LIBRARIES = {
+    "median160": {"n": 300, "median": 160.0},
+    "clip1024": {"n": 200, "clip": 1024, "median": 160.0, "long_plants": (2, 1, 1)},
+}
+
+
+def _unsearched(db_mod, db_dir: Path) -> int:
+    """Files whose search-cache entry is not marked at the threshold."""
+    db = sqlite3.connect(db_dir / db_mod.get_db_name())
+    try:
+        return db.execute(
+            "SELECT COUNT(*) FROM shape_search_cache WHERE searched_distance IS NULL"
+            " OR searched_distance < ?",
+            (vptree.fix_vpdq_similarity(75.0),),
+        ).fetchone()[0]
+    finally:
+        db.close()
+
+
+@pytest.mark.parametrize("library", sorted(FRESH_LIBRARIES))
+def test_fresh_library_equals_the_jax_orchestrator(tmp_path, library):
+    """A never-searched library queued into each package's database, then
+    main(skip_hashing=True) with the user's default search_prefilter
+    ("auto"), as chip_smoke.fresh_rehearsal runs it on the card: both
+    packages return the same count and mark the same pairs, the planted
+    set; the search cache is fully marked; a re-run marks and POSTs
+    nothing."""
+    kwargs = FRESH_LIBRARIES[library]
+    blobs, expected, _ = scene_library.build_corpus(seed=7, **kwargs)
+    planted = {(a, b) for a, b in expected if a < b}
+    n = len(blobs)
+    if "long_plants" in kwargs:
+        long_side = [p for p in planted if max(len(blobs[i]) for i in p) // 32 > 512]
+        assert len(long_side) >= 2
+    mains = {
+        "jax": functools.partial(jax_entrypoint.main, search_backend="tpu"),
+        "port": functools.partial(entrypoint.main, search_backend="gpu", device="cpu"),
+    }
+    runs = {}
+    for package, main in mains.items():
+        db_mod = PACKAGES[package][0]
+        db_dir = tmp_path / package
+        _queue(db_mod, db_dir, 0, blobs)
+        first = _main_run(main, db_dir, n, search_prefilter="auto")
+        unsearched = _unsearched(db_mod, db_dir)
+        again = _main_run(main, db_dir, n, search_prefilter="auto")
+        runs[package] = (first, unsearched, again)
+    assert runs["port"] == runs["jax"]
+    (pairs, marked, _), unsearched, again = runs["port"]
+    assert marked == planted and pairs == len(planted)
+    assert unsearched == 0
+    assert again == (0, set(), [])
