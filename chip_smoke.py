@@ -46,13 +46,29 @@ Phases (each raises on failure; nothing is caught):
    through stage 2 and stage 4 as phase 2, with search_prefilter="auto":
    exact, a re-run marking 0, the sweep launched and no other kernel; its
    stage-2 and stage-4 seconds print beside phase 2's;
+2d. stage 4's timing lines: stage 4 once more from the database phase 2
+   saved after stage 2, with HVD_DEBUG_TIMING=1 for this run only (phase
+   2 runs without it) and stdout and stderr teed: held as phase 2, with as
+   many sweep launches as phase 2; one [chunk-timing] line per checkpoint
+   chunk, spanning the rows in order, whose hits add up to what the
+   chunks' searches handed the marking; [prune-timing], [seg-timing] with
+   its drain split, and [verify-timing] on stderr; the chunks' parts at
+   most the stage-4 seconds. It prints one line splitting those seconds
+   (the chunks' fetch, search with its prune laps and the complements,
+   mark and cache-update, and what lies outside the chunks) with the card,
+   and one with stage A's segment laps and stage B's verify split;
 3. the CLI, ``python -m hydrus_video_deduplicator_tpu_torch`` (run in this
    process, so its kernel launches are counted), on the test corpus: with
    --hash-backend native --search-backend gpu --search-prefilter reps,
    with --search-backend tree in a fresh database, and with --hash-backend
    gpu --search-backend gpu --search-prefilter reps in a third; the three
    marked pair sets must be equal and non-empty, and each gpu run must
-   have launched its kernels;
+   have launched its kernels; then the JAX package's recorded Hydrus
+   session (tests/fixtures/cassette_main.json.zip) replayed through the
+   port's entrypoint.main() with hash_backend="gpu": every request as
+   recorded, in order, every recorded request made, the recorded pair
+   count, and the PDQ kernel launched (its four files take the VP-tree, as
+   in the recording);
 4. PDQ filter kernel against its plain PyTorch version on the card: one
    batch of 512 planar frames (noise, smooth gradients, constant, all-0,
    all-255 and frames decoded from tests/corpus/videos, from a numpy
@@ -224,6 +240,12 @@ kernel 5; 71.8M frames, 11.5 GB asked, a 7.10 GB database; 12 minutes):
     python3 -c "import chip_smoke as c; c.fresh_rehearsal(1_000_000, clip=1024, \
 long_plants=(600, 300, 300))"
 
+With ``timing=True`` a rehearsal's stage 4 also prints the port's
+HVD_DEBUG_TIMING lines, checked and summed as phase 2d's (the mean-71
+library at 1M, 16 chunks of 62,500 rows):
+
+    python3 -c "import chip_smoke as c; c.fresh_rehearsal(1_000_000, timing=True)"
+
 The JAX package's library rehearsal (artifacts/library_10m_rehearsal.py:
 8-frame random videos, the corpus drained by stage 2 and marked searched,
 then new videos with 1,000 planted re-encodes through one deduplicate();
@@ -260,6 +282,8 @@ Phase 2 inside trace_to, printing its busy share (any phase runs so through
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -310,6 +334,28 @@ REHEARSAL_PLANTS = 1_000
 STAGE2_S: dict = {}
 STAGE4_S: dict = {}
 STAGE1_S: dict = {}
+#: phase 2d and fresh_rehearsal(timing=True): the port's stage-4 timing
+#: lines (HVD_DEBUG_TIMING), in the JAX package's formats
+CHUNK_LINE = re.compile(
+    r"^\[chunk-timing\] rows (\d+)\.\.(\d+): fetch (\d+\.\d)s search (\d+\.\d)s "
+    r"mark (\d+\.\d)s \((\d+) hits\) cache-update (\d+\.\d)s$", re.M,
+)
+PRUNE_LAP = re.compile(
+    r"^\[prune-timing\] (col reps|row reps|stage-A sweep|verify-blob fetch|verify)"
+    r"(?: \((\d+) [a-z-]+\))?: (\d+\.\d)s$", re.M,
+)
+SEG_LAP = re.compile(r"^\[seg-timing\] (.+?): (\d+\.\d)s$", re.M)
+DRAIN_SPLIT = re.compile(
+    r"^\[seg-timing\] drain split: fetch (\d+\.\d)s host (\d+\.\d)s over (\d+) row tiles "
+    r"\((\d+) dense-fallback groups\)$", re.M,
+)
+#: on stderr, where a progress bar may precede it on its line
+VERIFY_LINE = re.compile(
+    r"\[verify-timing\] bucket (\d+\.\d)s pack (\d+\.\d)s dispatch (\d+\.\d)s "
+    r"drain (\d+\.\d)s over (\d+) device chunks$", re.M,
+)
+#: the [prune-timing] laps of one chunk, in order
+PRUNE_LAPS = ("col reps", "row reps", "stage-A sweep", "verify-blob fetch", "verify")
 #: phase 11: the members on one card when only one is visible, and the
 #: sampled files of its stage-1 run
 MESH_MEMBERS_ON_ONE_CARD = 4
@@ -1029,6 +1075,157 @@ def stage4_orchestrator(
     return launches
 
 
+class Tee(io.TextIOBase):
+    """A text stream that writes through to ``stream`` and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.copy = io.StringIO()
+
+    def write(self, text: str) -> int:
+        self.stream.write(text)
+        return self.copy.write(text)
+
+    def flush(self) -> None:
+        self.stream.flush()
+
+
+@contextlib.contextmanager
+def debug_timing_run():
+    """HVD_DEBUG_TIMING=1 inside the block, stdout and stderr teed, and the
+    hits of every stage-4 chunk's search counted (each outermost call of
+    find_pairs_pruned or find_pairs: what the chunk loop hands mark_hits).
+    Yields a dict: "out" and "err", the streams' copies (StringIO), and
+    "hits", the hits counted."""
+    from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
+    from hydrus_video_deduplicator_tpu_torch.utils.profiling import DEBUG_TIMING_ENV
+
+    seen = {"out": Tee(sys.stdout), "err": Tee(sys.stderr), "hits": 0}
+    depth = [0]
+    real = {name: getattr(GpuSearchEngine, name) for name in ("find_pairs_pruned", "find_pairs")}
+
+    def counted(name):
+        def search(self, *args, **kwargs):
+            depth[0] += 1
+            try:
+                hits = real[name](self, *args, **kwargs)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                seen["hits"] += len(hits)
+            return hits
+
+        return search
+
+    before = os.environ.get(DEBUG_TIMING_ENV)
+    os.environ[DEBUG_TIMING_ENV] = "1"
+    for name in real:
+        setattr(GpuSearchEngine, name, counted(name))
+    try:
+        with contextlib.redirect_stdout(seen["out"]), contextlib.redirect_stderr(seen["err"]):
+            yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(GpuSearchEngine, name, fn)
+        if before is None:
+            del os.environ[DEBUG_TIMING_ENV]
+        else:
+            os.environ[DEBUG_TIMING_ENV] = before
+        seen["out"], seen["err"] = seen["out"].copy.getvalue(), seen["err"].copy.getvalue()
+
+
+def stage4_split(phase, seen: dict, n_rows: int, t_stage4: float) -> None:
+    """Reads the timing lines of one stage-4 run (``debug_timing_run``) of
+    n_rows unsearched rows and prints the split of its t_stage4 seconds:
+    the chunks' fetch, search (the prune laps and, as what no lap covers,
+    the complements), mark and cache-update, and what lies outside the
+    chunks; then stage A's segment laps and stage B's verify split. Raises
+    unless there is one chunk line per checkpoint chunk, spanning the rows
+    in order, whose hits add up to what the searches handed the marking;
+    every tag is there ([verify-timing] on stderr); and the chunks' parts
+    add up to at most t_stage4 (plus the printed tenths' rounding)."""
+    from hydrus_video_deduplicator_tpu_torch.dedup import HydrusVideoDeduplicator as D
+
+    out, err = seen["out"], seen["err"]
+    chunks = [m.groups() for m in CHUNK_LINE.finditer(out)]
+    rows = max(D.SEARCH_CHECKPOINT_ROWS, -(-n_rows // D.SEARCH_MAX_CHUNKS))
+    spans = [(int(c[0]), int(c[1])) for c in chunks]
+    want = [(k, min(k + rows, n_rows)) for k in range(0, n_rows, rows)]
+    if spans != want:
+        raise AssertionError(f"phase {phase}: chunk lines {spans}, checkpoint chunks {want}")
+    hits = sum(int(c[5]) for c in chunks)
+    if hits != seen["hits"]:
+        raise AssertionError(
+            f"phase {phase}: the chunk lines hold {hits} hits, the marking got {seen['hits']}"
+        )
+    missing = [tag for tag, found in (
+        ("[chunk-timing]", chunks), ("[prune-timing]", PRUNE_LAP.search(out)),
+        ("[seg-timing]", SEG_LAP.search(out)), ("drain split", DRAIN_SPLIT.search(out)),
+        ("[verify-timing] on stderr", VERIFY_LINE.search(err)),
+    ) if not found]
+    if missing:
+        raise AssertionError(f"phase {phase}: no {missing} line")
+    sums = {part: sum(float(c[k]) for c in chunks) for k, part in (
+        (2, "fetch"), (3, "search"), (4, "mark"), (6, "cache-update"),
+    )}
+    in_chunks = sum(sums.values())
+    if in_chunks > t_stage4 + 0.05 * 4 * len(chunks):
+        raise AssertionError(f"phase {phase}: the chunks' parts {in_chunks:.1f} s exceed stage 4")
+    laps = {label: 0.0 for label in PRUNE_LAPS}
+    for label, _count, sec in PRUNE_LAP.findall(out):
+        laps[label] += float(sec)
+    seg: dict = {}
+    for label, sec in SEG_LAP.findall(out):
+        label = re.sub(r"^row tile \d+ dispatched$", "row tile k dispatched", label)
+        seg[label] = seg.get(label, 0.0) + float(sec)
+    drain = [tuple(map(float, m)) for m in DRAIN_SPLIT.findall(out)]
+    verify = [tuple(map(float, m)) for m in VERIFY_LINE.findall(err)]
+    # each part sums lines printed in tenths: up to 0.05 s off a line
+    outside = t_stage4 - in_chunks
+    complements = sums["search"] - sum(laps.values())
+    n_laps = len(PRUNE_LAP.findall(out))
+    log(
+        f"phase {phase}: stage 4 {t_stage4:.3f} s over {len(chunks)} chunks, {hits} hits, in "
+        f"sums of the lines' tenths (each up to 0.05 s off): fetch {sums['fetch']:.1f}, search "
+        f"{sums['search']:.1f} (col reps {laps['col reps']:.1f}, row reps "
+        f"{laps['row reps']:.1f}, stage A {laps['stage-A sweep']:.1f}, verify-blob fetch "
+        f"{laps['verify-blob fetch']:.1f}, verify {laps['verify']:.1f}, complements (search "
+        f"less its laps) {complements:.1f} +- {0.05 * (len(chunks) + n_laps):.2f}), mark "
+        f"{sums['mark']:.1f}, cache-update {sums['cache-update']:.1f}, outside the chunks "
+        f"{outside:.1f} +- {0.05 * 4 * len(chunks):.2f} s; card: {card_line()}"
+    )
+    log(
+        f"phase {phase}   stage A's segment laps (s): "
+        + ", ".join(f"{label} {sec:.1f}" for label, sec in seg.items())
+        + f"; drain fetch {sum(d[0] for d in drain):.1f}, host {sum(d[1] for d in drain):.1f} "
+        f"over {int(sum(d[2] for d in drain))} row tiles; stage B (verify): bucket "
+        f"{sum(v[0] for v in verify):.1f}, pack {sum(v[1] for v in verify):.1f}, dispatch "
+        f"{sum(v[2] for v in verify):.1f}, drain {sum(v[3] for v in verify):.1f} over "
+        f"{int(sum(v[4] for v in verify))} device chunks"
+    )
+
+
+def phase2d_timing(lib, db2: str, phase2_sweeps: int) -> None:
+    """Phase 2d: stage 4 once more from the database phase 2 saved after
+    stage 2, with HVD_DEBUG_TIMING=1 for this run only
+    (``debug_timing_run``): held as phase 2 (the planted set, the cache
+    fully marked, a re-run marking 0, the sweep and no other kernel), with
+    as many sweep launches as phase 2, and its timing lines read and its
+    stage-4 seconds split by ``stage4_split``."""
+    with debug_timing_run() as seen:
+        launches = stage4_orchestrator(
+            "2d", *lib, {"exists_mask_sweep"}, from_db=db2, search_prefilter="auto"
+        )
+    stage4_split("2d", seen, len(lib[0]), STAGE4_S[("2d", "auto")])
+    log(
+        f"phase 2d: sweep launches {launches['exists_mask_sweep']} (phase 2: {phase2_sweeps}); "
+        f"stage 4 {STAGE4_S[('2d', 'auto')]:.3f} s (phase 2, without the lines: "
+        f"{STAGE4_S[(2, 'auto')]:.3f} s)"
+    )
+    if launches["exists_mask_sweep"] != phase2_sweeps:
+        raise AssertionError("phase 2d: the sweep launched otherwise than in phase 2")
+
+
 def phase2b_delta(lib, deduper, db, server, before: dict) -> int:
     """Phase 2b, the delta: N_DELTA new videos of scene_library.build_delta
     added to the library that phase 2 has just searched (``deduper``,
@@ -1291,7 +1488,7 @@ def phase2c_mean200() -> int:
 
 def fresh_rehearsal(
     n: int, median: float = 48.0, clip: int = 512, long_plants=(0, 0, 0),
-    workdir: str | None = None,
+    workdir: str | None = None, timing: bool = False,
 ) -> None:
     """The JAX package's fresh-library rehearsal
     (artifacts/library_1m_fresh.py) through the port on the card: the
@@ -1308,7 +1505,9 @@ def fresh_rehearsal(
     log's lines in its words and order (frame profile, planted pairs,
     queue filled, STAGE2, DB size, STAGE4, verify, re-run, SUMMARY), the
     stage split of search_timers, each kernel's launches and device time
-    and the peak host RSS. Not part of main()."""
+    and the peak host RSS. With ``timing``, the run prints the port's
+    HVD_DEBUG_TIMING lines too, and ``stage4_split`` checks them and splits
+    its stage-4 seconds (phase 2d's line). Not part of main()."""
     import numpy as np
     import torch
 
@@ -1334,10 +1533,14 @@ def fresh_rehearsal(
     if clip > sl.SEG_MAX_FRAMES:
         kernels.add("similarity_block")
     seconds: dict = {}
-    stage4_orchestrator(
-        "fresh", blobs, pairs, n_empty, min_sim, kernels, after=lambda *a: seconds.update(a[-1]),
-        workdir=workdir, release_blobs=True, search_prefilter="auto",
-    )
+    with debug_timing_run() if timing else contextlib.nullcontext() as seen:
+        stage4_orchestrator(
+            "fresh", blobs, pairs, n_empty, min_sim, kernels,
+            after=lambda *a: seconds.update(a[-1]), workdir=workdir, release_blobs=True,
+            search_prefilter="auto",
+        )
+    if timing:
+        stage4_split("fresh", seen, n, seconds["stage 4"])
     total = seconds["stage 2"] + seconds["maintenance"] + seconds["stage 4"]
     log(
         f"SUMMARY: fresh {n}-video library (scene profile, median {median:g}, clip {clip}, "
@@ -1390,6 +1593,50 @@ def phase3_cli():
         raise AssertionError("phase 3: gpu and tree pair sets differ, or are empty")
     if ghash != gpu or l_ghash[0] == 0 or l_ghash[1] == 0:
         raise AssertionError("phase 3: the gpu-hash run differs from the native-hash run")
+    phase3_replay()
+
+
+def phase3_replay() -> None:
+    """The JAX package's recorded Hydrus session (tests/fixtures/
+    cassette_main.json.zip) replayed through the port's entrypoint.main()
+    on the card with hash_backend="gpu": every request must match the
+    recording in order, every recorded request must be made, the pair
+    count must be the recorded one, and the PDQ kernel must have launched.
+    The session's four files are below GPU_ENGINE_MIN_BATCH, so the search
+    takes the VP-tree, as in the recording: the device search POSTs each
+    pair once, in one batch, where the recorded session POSTs each
+    direction alone, so no run of the device search can replay it; the
+    CLI runs above hold the sweep."""
+    import requests
+
+    from hydrus_video_deduplicator_tpu_torch import entrypoint
+    from hydrus_video_deduplicator_tpu_torch.ops import pdq_filter
+    from tests import cassette
+    from tests.fake_hydrus import DEFAULT_ACCESS_KEY
+
+    data = cassette.load_cassette(cassette.CASSETTE_PATH)
+    replayer = cassette.Replayer(data["interactions"])
+    real = requests.Session.request
+    requests.Session.request = lambda self, method, url, **kw: replayer(self, method, url, **kw)
+    pdq_filter.LAUNCHES["pdq_filter"] = 0
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_replay_") as tmp:
+            pairs = entrypoint.main(
+                api_key=DEFAULT_ACCESS_KEY, api_url="http://localhost:45869",  # never contacted
+                dedup_database_dir=os.path.join(tmp, "db"), hash_backend="gpu",
+            )
+    finally:
+        requests.Session.request = real
+    launches = pdq_filter.LAUNCHES["pdq_filter"]
+    log(
+        f"phase 3: the recorded session replayed through main(hash_backend='gpu') in "
+        f"{time.perf_counter() - t0:.1f} s: {replayer.cursor} of {len(replayer.interactions)} "
+        f"requests, {pairs} pairs (recorded {data['pairs']}), pdq_filter launches {launches}"
+    )
+    replayer.assert_exhausted()
+    if pairs != data["pairs"] or launches == 0:
+        raise AssertionError("phase 3: the replay's pairs differ, or the PDQ kernel never launched")
 
 
 def pdq_test_frames(n: int = 512):
@@ -2482,11 +2729,12 @@ def main() -> int:
     lib2 = build_library(N_VIDEOS)
     timing = phase1_kernel_vs_plain(lib2[0], dev)
     delta_launches = []  # phase 2b runs on phase 2's database after its re-run
-    sweep_launches = stage4_orchestrator(
+    phase2_sweeps = stage4_orchestrator(
         2, *lib2, {"exists_mask_sweep"}, save_db=db2,
         after=lambda *state: delta_launches.append(phase2b_delta(lib2, *state)),
-    )["exists_mask_sweep"] + delta_launches[0]
-    sweep_launches += phase2c_mean200()
+    )["exists_mask_sweep"]
+    sweep_launches = phase2_sweeps + delta_launches[0] + phase2c_mean200()
+    phase2d_timing(lib2, db2, phase2_sweeps)
     phase3_cli()
     pdq_timing = phase4_pdq_kernel_vs_plain(dev)
     pdq_launches = phase5_stage1()

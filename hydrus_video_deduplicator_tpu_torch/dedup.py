@@ -21,6 +21,7 @@ same database.
 
 from __future__ import annotations
 
+import builtins
 import functools
 import gc
 import logging
@@ -52,6 +53,7 @@ from .ops import similarity_segments as seg
 from .page_logger import HydrusPageLogger
 from .parallel import mesh as mesh_mod
 from .parallel.engine import GpuSearchEngine, blob_frame_counts, iter_blob_items
+from .utils.profiling import debug_timing
 
 if TYPE_CHECKING:
     from collections.abc import Callable, Sequence
@@ -1041,6 +1043,8 @@ class HydrusVideoDeduplicator:
         rows_done = 0
         max_chunks = int(os.environ.get("HVD_SEARCH_MAX_CHUNKS", "0")) or self.SEARCH_MAX_CHUNKS
         chunk_rows = max(self.SEARCH_CHECKPOINT_ROWS, -(-len(files) // max_chunks))
+        # HVD_DEBUG_TIMING: one [chunk-timing] line a chunk, as the JAX package prints
+        chunk_timing = debug_timing()
 
         # one-chunk-ahead prefetch: the next chunk's row blobs are read from
         # SQLite on a second connection while the current chunk sweeps;
@@ -1081,10 +1085,12 @@ class HydrusVideoDeduplicator:
                 chunk_files = files[k0 : k0 + chunk_rows]
                 if self.should_skip_step_fn and self.should_skip_step_fn():
                     return num_similar_pairs // 2
+                t0 = time.perf_counter()
                 th, out, chunk_row_ids = prefetched.pop(ci)
                 start_prefetch(ci + 1)
                 th.join()
                 chunk_phashes = out[0] if out else fetch_blobs(self.db, chunk_row_ids)
+                t_fetch = time.perf_counter() - t0
                 # triangle sweep: this chunk compares against the corpus
                 # prefix ending at its own last row
                 chunk_rows_start_pos = n_searched + rows_done
@@ -1105,6 +1111,7 @@ class HydrusVideoDeduplicator:
                 # rows are the corpus suffix at this chunk's position: the
                 # engine reuses its column rep cache for the row side
                 extra = {"rows_at": chunk_rows_start_pos} if use_prune else {}
+                t0 = time.perf_counter()
                 hits = (
                     search_fn(
                         chunk_phashes,
@@ -1118,8 +1125,12 @@ class HydrusVideoDeduplicator:
                     if chunk_phashes
                     else []
                 )
+                t_search = time.perf_counter() - t0
+                t0 = time.perf_counter()
                 if not mark_hits(hits, chunk_row_ids, chunk_rows_start_pos):
                     return num_similar_pairs // 2
+                t_mark = time.perf_counter() - t0
+                t0 = time.perf_counter()
                 # the chunk is the checkpoint unit: its cache entries land
                 # atomically in one statement and one commit
                 self.db.conn.executemany(
@@ -1127,6 +1138,15 @@ class HydrusVideoDeduplicator:
                     [(search_threshold, h) for h in chunk_files],
                 )
                 self.db.commit()
+                if chunk_timing:
+                    # not rich's print: it reads the tag as markup and drops it
+                    builtins.print(
+                        f"[chunk-timing] rows {k0}..{k0 + len(chunk_files)}: "
+                        f"fetch {t_fetch:.1f}s search {t_search:.1f}s "
+                        f"mark {t_mark:.1f}s ({len(hits)} hits) "
+                        f"cache-update {time.perf_counter() - t0:.1f}s",
+                        flush=True,
+                    )
                 rows_done += len(chunk_row_ids)
                 search_bar.n = int(100 * rows_done / len(row_ids)) if len(row_ids) else 100
                 search_bar.refresh()

@@ -14,9 +14,13 @@ exact. On the CPU they are float32.
 
 from __future__ import annotations
 
+import sys
+import time
+
 import numpy as np
 import torch
 
+from ..utils.profiling import debug_timing
 from . import similarity as ops_sim
 from .similarity import BYTES, LANES, MATCH_DOT
 
@@ -77,7 +81,15 @@ def verify_pairs(
     sides of every pair must have 1..MAX_PAD frames (the engine routes
     other videos to the complement sweeps). Each bucket's results come
     back to the host in one transfer.
+
+    With ``HVD_DEBUG_TIMING`` set it prints the JAX package's
+    ``[verify-timing]`` line on stderr: the host seconds of bucketing the
+    pairs, packing the chunks, dispatching them (the copies to the device
+    and the product) and draining the results (the copy to the host, which
+    waits on the device), over the number of device chunks.
     """
+    acc = {"bucket": 0.0, "pack": 0.0, "dispatch": 0.0, "drain": 0.0, "n": 0}
+    t0 = time.perf_counter()
     out: list[tuple[int, int, int]] = []
     buckets: dict[int, list[tuple[int, int, int, int]]] = {}
     for i, j in pairs:
@@ -92,6 +104,7 @@ def verify_pairs(
         nb = len(b) // BYTES
         assert na > 0 and nb > 0, (i, j)
         buckets.setdefault(_bucket_of(max(na, nb)), []).append((i, j, na, nb))
+    acc["bucket"] = time.perf_counter() - t0
     done = len(out)
     total = len(pairs)
     for pad, items in sorted(buckets.items()):
@@ -99,6 +112,7 @@ def verify_pairs(
         sims_dev = []
         for k0 in range(0, len(items), p_chunk):
             chunk = items[k0 : k0 + p_chunk]
+            t0 = time.perf_counter()
             a_packed = np.zeros((len(chunk), pad, LANES), dtype=np.uint32)
             b_packed = np.zeros((len(chunk), pad, LANES), dtype=np.uint32)
             a_cnt = np.zeros(len(chunk), dtype=np.int32)
@@ -108,6 +122,7 @@ def verify_pairs(
                 b_packed[k, :nb] = ops_sim.blobs_to_packed(col_blob[j])
                 a_cnt[k] = na
                 b_cnt[k] = nb
+            t1 = time.perf_counter()
             sims_dev.append(
                 _verify_chunk(
                     ops_sim.to_words(a_packed, device),
@@ -117,12 +132,25 @@ def verify_pairs(
                     pad,
                 )
             )
+            t2 = time.perf_counter()
+            acc["pack"] += t1 - t0
+            acc["dispatch"] += t2 - t1
+            acc["n"] += 1
+        t0 = time.perf_counter()
         sims = torch.cat(sims_dev).cpu().numpy()
+        acc["drain"] += time.perf_counter() - t0
         for (i, j, _, _), s in zip(items, sims.tolist()):
             if s >= min_sim:
                 out.append((i, j, s))
         done += len(items)
         if progress is not None:
             progress(done, total)
+    if debug_timing():
+        print(
+            "[verify-timing] bucket {bucket:.1f}s pack {pack:.1f}s dispatch "
+            "{dispatch:.1f}s drain {drain:.1f}s over {n} device chunks".format(**acc),
+            file=sys.stderr,
+            flush=True,
+        )
     return out
 

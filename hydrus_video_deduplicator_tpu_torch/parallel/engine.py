@@ -33,12 +33,17 @@ complements.
 
 Over a mesh (``parallel.mesh``) both device routes shard their row tiles
 over the members, with the columns replicated to every device.
+
+With ``HVD_DEBUG_TIMING`` set, the pruned search prints ``[prune-timing]``
+laps and both segment routes ``[seg-timing]`` laps with a ``drain split``
+line, in the JAX package's formats (``utils.profiling.Laps``).
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -51,6 +56,7 @@ from ..ops import similarity as ops_sim
 from ..ops import similarity_block as sb
 from ..ops import similarity_segments as seg
 from ..ops.similarity import BYTES, LANES, TOL
+from ..utils.profiling import Laps
 from ..vpdq import matchHashBytes
 from .mesh import Mesh, replicate, resolve_mesh, row_slabs
 
@@ -208,6 +214,30 @@ def _with_similarities(hits, row_phashes, all_phashes) -> list[tuple[int, int, i
     return [(i, j, int(matchHashBytes(row_phashes[i], col_blobs[j], TOL))) for i, j in hits]
 
 
+class _SegLaps(Laps):
+    """The ``[seg-timing]`` laps of one segment route, with its drain's
+    split: ``fetch``, the seconds of ``torch.nonzero`` and the copies to
+    the host (they wait on the device), ``host``, the seconds of the bit
+    decode and the slot mapping (and, on the unpruned route, of the hits'
+    similarities), over ``tiles`` row tiles."""
+
+    def __init__(self):
+        super().__init__("[seg-timing]")
+        self.fetch = self.host = 0.0
+        self.tiles = 0
+
+    def drain_split(self) -> None:
+        """The route's last lap and its drain split; the JAX route's dense
+        fallback has no counterpart here, so its count is always 0."""
+        self("row tiles + drain")
+        if self.on:
+            print(
+                f"{self.tag} drain split: fetch {self.fetch:.1f}s host {self.host:.1f}s "
+                f"over {self.tiles} row tiles (0 dense-fallback groups)",
+                flush=True,
+            )
+
+
 def decode_mask_hits(word_rows: np.ndarray, cols: np.ndarray, words: np.ndarray):
     """Set bits of row-packed mask words -> (row slot, column slot) arrays.
 
@@ -303,9 +333,10 @@ class GpuSearchEngine:
             for i in b.video_idx
         ]
         if seg_rows and any(p <= seg.SEG_MAX_FRAMES for p in cols.buckets):
+            laps = _SegLaps()
             cols_dev = state.get("seg_cols")
             if cols_dev is None:
-                cols_dev = state["seg_cols"] = self._stage_columns(seg_columns(cols))
+                cols_dev = state["seg_cols"] = self._stage_columns(seg_columns(cols), laps)
 
             def launch(cols, a_words, slot_a, counts_a, valid):
                 words, slots, counts = cols
@@ -313,8 +344,12 @@ class GpuSearchEngine:
                     a_words, slot_a, counts_a, words, slots, counts, valid, min_int_similarity
                 )
 
-            hits = self._segment_route(seg_rows, cols_dev, col_limit, launch)
+            hits = self._segment_route(seg_rows, cols_dev, col_limit, launch, laps)
+            t0 = time.perf_counter()
             out.extend(_with_similarities(hits, row_phashes, all_phashes))
+            # the JAX route finds each hit's similarity inside its drain
+            laps.host += time.perf_counter() - t0
+            laps.drain_split()
         col_arrays = state.setdefault("col_arrays", {})
         col_tiles = state.setdefault("col_tiles", {})
         for pa in rows.buckets:
@@ -475,8 +510,14 @@ class GpuSearchEngine:
         checkpointed triangle), the row leaders are looked up in the
         column rep cache instead of re-clustered, and verify reuses the
         in-memory row blobs for candidates inside that span.
+
+        With ``HVD_DEBUG_TIMING`` set it prints the JAX package's
+        ``[prune-timing]`` laps, in its order: col reps, row reps, stage-A
+        sweep (the column staging included), verify-blob fetch, verify. No
+        lap covers the complement sweeps after them.
         """
         assert min_int_similarity >= 1, "minimum similarity must be >= 1"
+        laps = Laps("[prune-timing]")
         radius_cap = reps_mod.RADIUS_CAP if radius_cap is None else radius_cap
         state = col_state if col_state is not None else {}
         prune_state = state.setdefault("prune", {})
@@ -513,6 +554,7 @@ class GpuSearchEngine:
             # the device staging and the lookup of the old reps are stale
             prune_state.pop("seg_cols", None)
             prune_state.pop("rep_lookup", None)
+        laps("col reps")
 
         if rows_at is not None:
             rep_lookup = prune_state.get("rep_lookup")
@@ -524,16 +566,18 @@ class GpuSearchEngine:
                 [b for _, b in iter_blob_items(row_phashes, seg_row_idx)], radius_cap
             )
         seg_rows = list(zip(seg_row_idx.tolist(), row_reps))
+        laps("row reps")
 
         self._progress_done = 0
         self._progress_total = len(seg_rows) * len(rep_cols)
         self._progress_cb = progress
         candidates: list[tuple[int, int]] = []
         if seg_rows and rep_cols:
+            seg_laps = _SegLaps()
             cols_dev = prune_state.get("seg_cols")
             if cols_dev is None:
                 cols_dev = prune_state["seg_cols"] = self._stage_columns(
-                    seg_columns_from_pairs(rep_cols)
+                    seg_columns_from_pairs(rep_cols), seg_laps
                 )
             tolerance = reps_mod.prune_tolerance(radius_cap)
 
@@ -541,7 +585,9 @@ class GpuSearchEngine:
                 words, slots, _counts = cols
                 return seg.exists_mask_sweep(a_words, slot_a, words, slots, valid, tolerance)
 
-            candidates = self._segment_route(seg_rows, cols_dev, col_limit, launch)
+            candidates = self._segment_route(seg_rows, cols_dev, col_limit, launch, seg_laps)
+            seg_laps.drain_split()
+        laps("stage-A sweep ({} candidates)", len(candidates))
 
         # DB-backed columns: fetch every candidate's column blob in batched
         # IN() probes; candidates inside this chunk's own row span reuse the
@@ -560,9 +606,11 @@ class GpuSearchEngine:
             if need:
                 local.update(all_phashes.iter_many(need))
             col_blobs_for_verify = local
+            laps("verify-blob fetch ({} off-span)", len(need))
         out = pair_verify.verify_pairs(
             candidates, row_phashes, col_blobs_for_verify, min_int_similarity, self.device
         )
+        laps("verify ({} hits)", len(out))
 
         # Complement sweeps (unpruned find_pairs with the segment-eligible
         # side emptied — empty blobs match nothing): long rows x every col,
@@ -588,7 +636,7 @@ class GpuSearchEngine:
             )
         return out
 
-    def _stage_columns(self, seg_cols: SegColumns) -> dict:
+    def _stage_columns(self, seg_cols: SegColumns, laps: Laps | None = None) -> dict:
         """Pack the column corpus into CHUNK_FRAMES chunks (N_SPLIT per
         step) and copy it to the device, bit-packed, COL_FILL_STEPS steps
         at a time so host memory stays bounded. Returns the device words
@@ -597,7 +645,13 @@ class GpuSearchEngine:
         [n_steps*STEP_SLOTS] int32 (0 empty), those three again under
         ``on`` for every device of the mesh (``replicate``), and the host
         map from flat column slot to corpus index ``smaps``
-        [n_steps*STEP_SLOTS] int64 (-1 empty)."""
+        [n_steps*STEP_SLOTS] int64 (-1 empty).
+
+        ``laps`` (the caller's ``[seg-timing]`` laps) gets ``col stream+fill``
+        once the host pack and the copies are enqueued; only with
+        ``HVD_DEBUG_TIMING`` set does it then wait for the copies (every
+        CUDA device of the mesh) and lap ``col staging synced (debug)``."""
+        laps = Laps("[seg-timing]") if laps is None else laps
         counts = seg_cols.counts
         chunk_id, slot_id, _frame_off, n_chunks = seg.plan_chunks(
             counts, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS
@@ -641,6 +695,12 @@ class GpuSearchEngine:
         flush()
         slot_counts = torch.from_numpy(slot_counts).to(self.device)
         copies = [replicate(t, self.mesh) for t in (words, slots, slot_counts)]
+        laps("col stream+fill")
+        if laps.on:
+            for dev in self.mesh.distinct_devices:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            laps("col staging synced (debug)")
         return {
             "words": words,
             "slots": slots,
@@ -670,7 +730,7 @@ class GpuSearchEngine:
         mask_bytes = seg.MASK_WORDS * n_steps * seg.STEP_SLOTS * 4
         return max(1, min(n_row_blocks, 65535, self._output_budget() // mask_bytes))
 
-    def _segment_route(self, seg_rows, cols_dev, col_limit, launch):
+    def _segment_route(self, seg_rows, cols_dev, col_limit, launch, laps: _SegLaps):
         """Hit (row, col) corpus pairs of seg_rows against staged columns.
 
         Each row tile's blocks round up to a multiple of the mesh size
@@ -683,6 +743,11 @@ class GpuSearchEngine:
         The next tile is launched on every member before the previous one
         drains, so the devices work while the host decodes. Every launch
         is drained (a host wait on its stream) before the route returns.
+
+        ``laps`` (the caller's ``[seg-timing]`` laps) gets ``row pack`` and
+        ``row tile k dispatched`` for the first 8 tiles, and the drain's
+        split; the caller laps ``row tiles + drain`` and prints the split
+        (``_SegLaps.drain_split``) once its work on the hits is done.
         """
         smaps = cols_dev["smaps"]
         n_steps = cols_dev["n_steps"]
@@ -695,6 +760,7 @@ class GpuSearchEngine:
         )
 
         row_blocks = seg.pack_blocks(seg_rows, seg.ROW_FRAMES, seg.ROW_SLOTS)
+        laps("row pack")
         n = self.mesh.size
         per_tile = n * self._row_blocks_per_tile(-(-len(row_blocks) // n), n_steps)
         out: list[tuple[int, int]] = []
@@ -720,25 +786,31 @@ class GpuSearchEngine:
                         valid[dev],
                     )
                 slabs.append((k, rmap[ss], masks))
+            if i0 < 8 * per_tile:
+                laps("row tile {} dispatched", i0 // per_tile)
             if pending is not None:
-                self._drain(pending, smaps, col_limit, total_cols, out)
+                self._drain(pending, smaps, col_limit, total_cols, out, laps)
             pending = slabs
         if pending is not None:
-            self._drain(pending, smaps, col_limit, total_cols, out)
+            self._drain(pending, smaps, col_limit, total_cols, out, laps)
         return out
 
-    def _drain(self, slabs, smaps, col_limit, total_cols, out):
+    def _drain(self, slabs, smaps, col_limit, total_cols, out, laps: _SegLaps):
         """Candidate pairs from one tile's masks, slab by slab: nonzero
         words found on the slab's member, their bits decoded on the host,
         and a slab's mask row r mapped through its slice of the tile's
-        rmap."""
+        rmap. Adds the tile to ``laps``' drain split."""
         n_rows = 0
         for k, rmap, masks in slabs:
             with self.mesh.member(k):
+                t0 = time.perf_counter()
                 nz = torch.nonzero(masks)
                 if len(nz):
                     vals = masks[nz[:, 0], nz[:, 1]].cpu().numpy()
                     nz = nz.cpu().numpy()
+                t1 = time.perf_counter()
+                laps.fetch += t1 - t0
+                if len(nz):
                     rows_l, cols_l = decode_mask_hits(nz[:, 0], nz[:, 1], vals)
                     ia = rmap[rows_l]
                     ib = smaps[cols_l]
@@ -746,7 +818,9 @@ class GpuSearchEngine:
                     if col_limit is not None:
                         keep &= ib < col_limit
                     out.extend(zip(ia[keep].tolist(), ib[keep].tolist()))
+                laps.host += time.perf_counter() - t1
             n_rows += int((rmap >= 0).sum())
+        laps.tiles += 1
         if self._progress_cb is not None:
             self._progress_done += n_rows * total_cols
             self._progress_cb(self._progress_done, self._progress_total)

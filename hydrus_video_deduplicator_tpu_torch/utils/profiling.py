@@ -8,6 +8,10 @@
   waiting on the card with CUDA events instead of a host copy.
 - :func:`device_busy_share` — the share of a trace's window in which a
   CUDA kernel ran (1 minus the device's idle share).
+- :class:`Laps` and :func:`debug_timing` — stage 4's opt-in trace, switched
+  on by the environment variable ``HVD_DEBUG_TIMING`` as in the JAX
+  package: ``[chunk-timing]``, ``[prune-timing]``, ``[seg-timing]`` and
+  ``[verify-timing]`` lines of host wall time in the JAX package's formats.
 """
 
 from __future__ import annotations
@@ -22,6 +26,35 @@ import torch
 
 #: the file trace_to writes into its log_dir
 TRACE_FILE = "trace.json"
+#: any non-empty value switches stage 4's timing lines on
+DEBUG_TIMING_ENV = "HVD_DEBUG_TIMING"
+
+
+def debug_timing() -> bool:
+    """Whether ``HVD_DEBUG_TIMING`` is set; read at each call, so a timed
+    function reads it once each time it runs."""
+    return bool(os.environ.get(DEBUG_TIMING_ENV))
+
+
+class Laps:
+    """Lap printer of one tag: ``laps(label)`` prints ``f"{tag} {label}:
+    {seconds:.1f}s"`` on stdout, the host wall time since the previous lap
+    (or since the printer was made). The label is a ``str.format`` pattern
+    filled with ``counts``, so a lap builds no string when the timing is
+    off. Made once per call of the timed function, it reads
+    ``HVD_DEBUG_TIMING`` then; with the variable unset, a lap does nothing.
+    """
+
+    def __init__(self, tag: str):
+        self.tag = tag
+        self.on = debug_timing()
+        self._t0 = time.perf_counter() if self.on else 0.0
+
+    def __call__(self, label: str, *counts: int) -> None:
+        if self.on:
+            now = time.perf_counter()
+            print(f"{self.tag} {label.format(*counts)}: {now - self._t0:.1f}s", flush=True)
+            self._t0 = now
 
 
 @contextlib.contextmanager
