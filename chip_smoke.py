@@ -111,6 +111,14 @@ Phases (each raises on failure; nothing is caught):
    set must equal the planted set, the search cache must be fully marked,
    a re-run must mark 0, the segment similarity kernel must have launched
    and no other kernel;
+7b. the JAX package's exact all-pairs sweep (artifacts/sweep_1m.py) at a
+   tenth of its size, through find_pairs: sweep_rehearsal at SWEEP_SMOKE,
+   100,000 8-frame videos in triangle chunks of 13,107 rows and 24,000
+   videos of 1-64 frames with 100 empty hashes in chunks of 3,000,
+   kernel 3 in its mask mode: each chunk's hits equal to the planted truth's, every
+   non-empty video matching itself at 100, every planted direction at its
+   similarity, nothing else, and only the segment similarity kernel
+   launched;
 8. bucketed similarity kernel (kernel 5) against its plain PyTorch version
    on the card, bit for bit, at the long-video route's shapes: the
    513-1024-frame videos of the phase-9 library's first checkpoint chunk
@@ -198,8 +206,8 @@ Phases (each raises on failure; nothing is caught):
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
 count over the run of the path it serves: phases 2, 2b and 2c for the sweep, phase 5
-for the PDQ filter, phase 7 for the similarity kernel and, read from the
-same counters, for the counts mode (kernel 6) and the every-step sweep
+for the PDQ filter, phases 7 and 7b for the similarity kernel and, read from
+phase 7's counters, for the counts mode (kernel 6) and the every-step sweep
 (kernel 2): these serve no path of the program, so theirs is 0; phase 6
 holds both against their plain versions; phase 9's "auto" run for the
 bucketed similarity kernel. "bound_ms" is the least time the card could
@@ -255,6 +263,17 @@ at 1M + 100k (about 3 minutes on the card's machine) and at its own
 
     python3 -c "import chip_smoke as c; c.delta_rehearsal(1_000_000, 100_000)"
     python3 -c "import chip_smoke as c; c.delta_rehearsal(10_000_000, 100_000)"
+
+The JAX package's measured exact all-pairs sweep (artifacts/sweep_1m.py)
+through the port's find_pairs at the JAX logs' own sizes, each held chunk
+by chunk against its log where it has one (``sweep_rehearsal``), and the
+1M library through stage 4 of deduplicate() with the timing lines
+(``sweep_orchestrator``); one a chip call:
+
+    python3 -c "import chip_smoke as c; c.sweep_rehearsal(1_000_000, 131_072, 'triangle')"
+    python3 -c "import chip_smoke as c; c.sweep_rehearsal(240_000, 30_000, 'triangle', 'mixed')"
+    python3 -c "import chip_smoke as c; c.sweep_rehearsal(1_000_000, 131_072, 'square')"
+    python3 -c "import chip_smoke as c; c.sweep_orchestrator(1_000_000)"
 
 Phases 0, 2 and 2b alone:
 
@@ -328,6 +347,16 @@ FRESH_BYTES_PER_FRAME = 160
 #: planted new videos
 REHEARSAL_FRAMES = 8
 REHEARSAL_PLANTS = 1_000
+#: sweep_rehearsal (artifacts/sweep_1m.py): the JAX package's logs by (n,
+#: chunk, mode, lengths), whose corpus line and chunk hits are held against
+#: the port's, and phase 7b's runs
+SWEEP_LOGS = {
+    (1_000_000, 131_072, "triangle", "uniform"): "artifacts/sweep_1m_triangle_packed_warm.log",
+    (240_000, 30_000, "triangle", "mixed"): "artifacts/sweep_mixed_240k.log",
+}
+SWEEP_CORPUS_LINE = re.compile(r"corpus: (\d+) videos \((\w+), (\d+) frames, (\d+) empty\)")
+SWEEP_CHUNK_LINE = re.compile(r"chunk \d+/\d+: (\d+) hits")
+SWEEP_SMOKE = ((100_000, 13_107, "triangle", "uniform"), (24_000, 3_000, "triangle", "mixed"))
 #: phases 2, 2b, 2c, 7, 9 and 11: stage-2 and stage-4 search+mark seconds
 #: by (phase, search_prefilter); phases 5 and 11: stage-1 (seconds, hashed
 #: frames)
@@ -1134,7 +1163,7 @@ def debug_timing_run():
         seen["out"], seen["err"] = seen["out"].copy.getvalue(), seen["err"].copy.getvalue()
 
 
-def stage4_split(phase, seen: dict, n_rows: int, t_stage4: float) -> None:
+def stage4_split(phase, seen: dict, n_rows: int, t_stage4: float, pruned: bool = True) -> None:
     """Reads the timing lines of one stage-4 run (``debug_timing_run``) of
     n_rows unsearched rows and prints the split of its t_stage4 seconds:
     the chunks' fetch, search (the prune laps and, as what no lap covers,
@@ -1143,7 +1172,10 @@ def stage4_split(phase, seen: dict, n_rows: int, t_stage4: float) -> None:
     unless there is one chunk line per checkpoint chunk, spanning the rows
     in order, whose hits add up to what the searches handed the marking;
     every tag is there ([verify-timing] on stderr); and the chunks' parts
-    add up to at most t_stage4 (plus the printed tenths' rounding)."""
+    add up to at most t_stage4 (plus the printed tenths' rounding).
+    ``pruned=False`` reads a run on the unpruned route, which prints no
+    [prune-timing] or [verify-timing] line: its search is the segment
+    route, whose drain host seconds hold the hits' similarities."""
     from hydrus_video_deduplicator_tpu_torch.dedup import HydrusVideoDeduplicator as D
 
     out, err = seen["out"], seen["err"]
@@ -1158,11 +1190,16 @@ def stage4_split(phase, seen: dict, n_rows: int, t_stage4: float) -> None:
         raise AssertionError(
             f"phase {phase}: the chunk lines hold {hits} hits, the marking got {seen['hits']}"
         )
-    missing = [tag for tag, found in (
-        ("[chunk-timing]", chunks), ("[prune-timing]", PRUNE_LAP.search(out)),
-        ("[seg-timing]", SEG_LAP.search(out)), ("drain split", DRAIN_SPLIT.search(out)),
-        ("[verify-timing] on stderr", VERIFY_LINE.search(err)),
-    ) if not found]
+    tags = [
+        ("[chunk-timing]", chunks), ("[seg-timing]", SEG_LAP.search(out)),
+        ("drain split", DRAIN_SPLIT.search(out)),
+    ]
+    if pruned:
+        tags += [
+            ("[prune-timing]", PRUNE_LAP.search(out)),
+            ("[verify-timing] on stderr", VERIFY_LINE.search(err)),
+        ]
+    missing = [tag for tag, found in tags if not found]
     if missing:
         raise AssertionError(f"phase {phase}: no {missing} line")
     sums = {part: sum(float(c[k]) for c in chunks) for k, part in (
@@ -1184,24 +1221,30 @@ def stage4_split(phase, seen: dict, n_rows: int, t_stage4: float) -> None:
     outside = t_stage4 - in_chunks
     complements = sums["search"] - sum(laps.values())
     n_laps = len(PRUNE_LAP.findall(out))
+    search = (
+        f"col reps {laps['col reps']:.1f}, row reps {laps['row reps']:.1f}, stage A "
+        f"{laps['stage-A sweep']:.1f}, verify-blob fetch {laps['verify-blob fetch']:.1f}, "
+        f"verify {laps['verify']:.1f}, complements (search less its laps) {complements:.1f} "
+        f"+- {0.05 * (len(chunks) + n_laps):.2f}" if pruned else "the unpruned find_pairs"
+    )
     log(
         f"phase {phase}: stage 4 {t_stage4:.3f} s over {len(chunks)} chunks, {hits} hits, in "
         f"sums of the lines' tenths (each up to 0.05 s off): fetch {sums['fetch']:.1f}, search "
-        f"{sums['search']:.1f} (col reps {laps['col reps']:.1f}, row reps "
-        f"{laps['row reps']:.1f}, stage A {laps['stage-A sweep']:.1f}, verify-blob fetch "
-        f"{laps['verify-blob fetch']:.1f}, verify {laps['verify']:.1f}, complements (search "
-        f"less its laps) {complements:.1f} +- {0.05 * (len(chunks) + n_laps):.2f}), mark "
-        f"{sums['mark']:.1f}, cache-update {sums['cache-update']:.1f}, outside the chunks "
-        f"{outside:.1f} +- {0.05 * 4 * len(chunks):.2f} s; card: {card_line()}"
+        f"{sums['search']:.1f} ({search}), mark {sums['mark']:.1f}, cache-update "
+        f"{sums['cache-update']:.1f}, outside the chunks {outside:.1f} +- "
+        f"{0.05 * 4 * len(chunks):.2f} s; card: {card_line()}"
     )
     log(
-        f"phase {phase}   stage A's segment laps (s): "
+        f"phase {phase}   {'stage A' if pruned else 'the search'}'s segment laps (s): "
         + ", ".join(f"{label} {sec:.1f}" for label, sec in seg.items())
         + f"; drain fetch {sum(d[0] for d in drain):.1f}, host {sum(d[1] for d in drain):.1f} "
-        f"over {int(sum(d[2] for d in drain))} row tiles; stage B (verify): bucket "
-        f"{sum(v[0] for v in verify):.1f}, pack {sum(v[1] for v in verify):.1f}, dispatch "
-        f"{sum(v[2] for v in verify):.1f}, drain {sum(v[3] for v in verify):.1f} over "
-        f"{int(sum(v[4] for v in verify))} device chunks"
+        f"over {int(sum(d[2] for d in drain))} row tiles"
+        + (
+            f"; stage B (verify): bucket {sum(v[0] for v in verify):.1f}, pack "
+            f"{sum(v[1] for v in verify):.1f}, dispatch {sum(v[2] for v in verify):.1f}, drain "
+            f"{sum(v[3] for v in verify):.1f} over {int(sum(v[4] for v in verify))} device chunks"
+            if pruned else " (the host seconds hold the hits' similarities)"
+        )
     )
 
 
@@ -1549,6 +1592,271 @@ def fresh_rehearsal(
         f"pairs marked, exact), total {total:.3f}s on one card; DB size {seconds['DB GB']:.2f}G; "
         f"{peak_rss()}; card: {card_line()}. CORRECTNESS: exact"
     )
+
+
+def sweep_log(n: int, chunk: int, mode: str, lengths: str):
+    """The JAX package's log of artifacts/sweep_1m.py at these arguments
+    (SWEEP_LOGS): (its path, its corpus line's (videos, lengths, frames,
+    empty), its chunk hits), or None where it has none."""
+    path = SWEEP_LOGS.get((n, chunk, mode, lengths))
+    if path is None:
+        return None
+    with open(os.path.join(ROOT, path)) as f:
+        text = f.read()
+    videos, kind, frames, empty = SWEEP_CORPUS_LINE.search(text).groups()
+    hits = [int(h) for h in SWEEP_CHUNK_LINE.findall(text)]
+    return path, (int(videos), kind, int(frames), int(empty)), hits
+
+
+def sweep_want(lens, expected: dict, chunk: int, mode: str) -> list[int]:
+    """The hits the planted truth gives each row chunk of a sweep: the
+    chunk's non-empty videos (self-matches), and each planted (row, col)
+    direction whose row lies in the chunk and whose column lies below the
+    chunk's end (triangle) or anywhere (square)."""
+    n = len(lens)
+    want = []
+    for i0 in range(0, n, chunk):
+        i1 = min(i0 + chunk, n)
+        limit = i1 if mode == "triangle" else n
+        planted = sum(1 for a, b in expected if i0 <= a < i1 and b < limit)
+        want.append(sum(1 for k in range(i0, i1) if lens[k]) + planted)
+    return want
+
+
+def sweep_tally(hits, i0: int, expected: dict, tally: dict) -> None:
+    """artifacts/sweep_1m.py's checks of one chunk's hits (row i of the
+    chunk is video i0 + i), added to ``tally``: "self" (each must score
+    100), "planted" (each at its expected similarity), "extras" and
+    "wrong" (lists of (row, col, similarity))."""
+    for i, j, s in hits:
+        gi = i + i0
+        if gi == j:
+            tally["self"] += 1
+            if s != 100:
+                tally["wrong"].append((gi, j, s))
+        elif (gi, j) in expected:
+            tally["planted"] += 1
+            if s != expected[(gi, j)]:
+                tally["wrong"].append((gi, j, s))
+        else:
+            tally["extras"].append((gi, j, s))
+
+
+def kernel3_rate() -> float:
+    """Kernel 3's frame comparisons a second on one row tile against the
+    whole column corpus (``bench_search_torch.measure``'s ``row_tile``,
+    whose 1M projection PERF.md quotes; about a second on the card); its
+    launches come before any count is set to 0."""
+    import bench_search_torch
+
+    return bench_search_torch.measure()["row_tile"]["frame_comparisons_per_s"]
+
+
+def sweep_rehearsal(
+    n: int = 1_000_000, chunk: int = 131_072, mode: str = "triangle", lengths: str = "uniform"
+) -> dict:
+    """The JAX package's measured exact all-pairs sweep
+    (artifacts/sweep_1m.py's main) through the port's find_pairs on the
+    card: ``scene_library.build_sweep_corpus(n, lengths)`` (seed 42), then
+    row chunks of ``chunk`` videos through one GpuSearchEngine with one
+    shared col_state, each against the corpus prefix ending at itself
+    (``mode="triangle"``: col_limit, stage 4's schedule) or against all of
+    it (``"square"``). It prints the JAX script's lines (corpus, chunk
+    k/K, DONE, the checks, CORRECTNESS) so the two logs read side by side,
+    and raises unless every chunk's hits equal what the planted truth
+    gives it (``sweep_want``) and, where SWEEP_LOGS has a JAX log at these
+    arguments, that log's corpus line and chunk hits; every non-empty
+    video matches itself at 100, every planted direction is found at its
+    similarity, nothing else is found, and kernel 3 launched and no other
+    search kernel. Before the DONE line it prints the column staging
+    seconds, kernel 3's launches and device seconds (CUDA events) and the
+    frame-pair slots it computed, the drain's fetch and host seconds, the
+    hits' similarities, peak host RSS and device memory, and the wall time
+    beside kernel 3's projection (``kernel3_rate``) scaled to this corpus
+    and mode. Raises without CUDA before anything runs. Returns kernel 3's
+    launches and the chunks' hits. Not part of main(); phase 7b runs it."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_rehearsal: CUDA is not available")
+    if mode not in ("triangle", "square"):
+        raise ValueError(f"mode must be 'triangle' or 'square', got {mode!r}")
+    from hydrus_video_deduplicator_tpu_torch import scene_library as sl
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+    from hydrus_video_deduplicator_tpu_torch.parallel import engine
+    from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
+
+    log(f"sweep rehearsal: N={n}, chunk {chunk}, {mode}, {lengths}; card: {card_line()}")
+    reference = sweep_log(n, chunk, mode, lengths)
+    rate = kernel3_rate()
+    t0 = time.perf_counter()
+    blobs, expected, n_empty = sl.build_sweep_corpus(n, lengths)
+    lens = np.fromiter((len(b) // 32 for b in blobs), dtype=np.int64, count=n)
+    frames = int(lens.sum())
+    n_far = sum(1 for a, b in expected if a < b and b - a == n // 2)
+    log(
+        f"corpus: {n} videos ({lengths}, {frames} frames, {n_empty} empty), "
+        f"{len(expected) // 2 - n_far} near + {n_far} far planted pairs "
+        f"(synth {time.perf_counter() - t0:.1f}s)"
+    )
+    want = sweep_want(lens, expected, chunk, mode)
+    if reference is not None:
+        path, corpus, jax_hits = reference
+        log(f"sweep rehearsal: held against {path}: corpus {corpus}, chunk hits {jax_hits}")
+        if corpus != (n, lengths, frames, n_empty) or jax_hits != want:
+            raise AssertionError(f"sweep rehearsal: the corpus or its truth differs from {path}")
+
+    eng = GpuSearchEngine()
+    timers = search_timers({"similarity_segments"})
+    seg_laps: list = []
+    timers.capture(engine._SegLaps, "drain_split", seg_laps)
+    row_blocks = [0]  # the row blocks of every launch
+    launch = seg.similarity_segments
+
+    def counted(*args):
+        row_blocks[0] += args[0].shape[0] // seg.ROW_FRAMES
+        return launch(*args)
+
+    timers.patch(seg, "similarity_segments", counted)
+    col_state: dict = {}
+    tally = {"self": 0, "planted": 0, "extras": [], "wrong": []}
+    got = []
+    n_chunks = -(-n // chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_search_launches()
+    t_start = time.perf_counter()
+    try:
+        for k, i0 in enumerate(range(0, n, chunk)):
+            t_c = time.perf_counter()
+            before = search_launches()["similarity_segments"]
+            limit = min(i0 + chunk, n) if mode == "triangle" else None
+            hits = eng.find_pairs(
+                blobs[i0 : i0 + chunk], blobs, sl.MIN_SIM, col_state=col_state, col_limit=limit
+            )
+            sweep_tally(hits, i0, expected, tally)
+            got.append(len(hits))
+            now = time.perf_counter()
+            log(
+                f"chunk {k + 1}/{n_chunks}: {len(hits)} hits, {now - t_c:.1f}s (cum "
+                f"{now - t_start:.1f}s); the planted truth {want[k]}; kernel 3 launches "
+                f"{search_launches()['similarity_segments'] - before}"
+            )
+    finally:
+        timers.restore()
+    wall = time.perf_counter() - t_start
+    launches = search_launches()
+    peak_device = torch.cuda.max_memory_allocated()
+
+    sims = timers.seconds.get("hit similarities (matchHashBytes)", 0.0)
+    n_hits = timers.pairs.get("hit similarities (matchHashBytes)", 0)
+    fetch = sum(laps.fetch for laps in seg_laps)
+    drain_host = sum(laps.host for laps in seg_laps) - sims
+    kernel_s = timers.kernel_ms("similarity_segments") / 1e3
+    slots = timers.work_done("similarity_segments")
+    n_steps = col_state["seg_cols"]["n_steps"]
+    square_slots = row_blocks[0] * n_steps * seg.STEP_FRAMES * seg.ROW_FRAMES
+    compared = frames * frames // 2 if mode == "triangle" else frames * frames
+    projected = compared / rate
+    route = timers.seconds["segment route (launches + drain)"]
+    log(
+        f"sweep rehearsal: column staging {timers.seconds['column staging']:.3f} s "
+        f"({n_steps} column steps); segment route {route:.3f} s; "
+        f"kernel 3 {kernel_s:.3f} s device time (CUDA events) over "
+        f"{timers.launches('similarity_segments')} launches ({launches['similarity_segments']} "
+        f"counted), {slots} frame-pair slots computed ((row block, valid step) pairs x 2048 x "
+        f"2048; {slots / max(kernel_s, 1e-9):.4g} per s), {slots / square_slots:.4f} of its "
+        f"{row_blocks[0]} row blocks against every step; drain fetch {fetch:.3f} s, host decode "
+        f"{drain_host:.3f} s over {sum(laps.tiles for laps in seg_laps)} row tiles; hit "
+        f"similarities {sims:.3f} s over {n_hits} hits"
+    )
+    log(
+        f"sweep rehearsal: {peak_rss()}; device memory peak {peak_device / 1e9:.3f} GB "
+        f"(torch.cuda.max_memory_allocated); wall {wall:.3f} s against kernel 3's projection "
+        f"{projected:.3f} s ({compared:.4g} frame comparisons at {rate:.4g} a second, "
+        f"bench_search_torch.measure's row tile in this process): {wall / projected:.3f}x; "
+        f"card: {card_line()}"
+    )
+    pairs = n * n // 2 if mode == "triangle" else n * n
+    log(
+        f"DONE [{mode}]: {n}x{n} -> {pairs:.3g} compared pairs in {wall:.1f}s wall "
+        f"({pairs / wall:.3g} pairs/s end-to-end, one card)"
+    )
+    want_self = n - n_empty
+    want_planted = sum(want) - want_self
+    log(
+        f"self-matches {tally['self']}/{want_self}; planted hit events "
+        f"{tally['planted']}/{want_planted}; false positives {len(tally['extras'])}; wrong "
+        f"similarity {len(tally['wrong'])}"
+    )
+    if got != want:
+        raise AssertionError(f"sweep rehearsal: chunk hits {got}, the planted truth {want}")
+    if tally["self"] != want_self or tally["planted"] != want_planted:
+        raise AssertionError("sweep rehearsal: self-matches or planted hit events missing")
+    if tally["extras"] or tally["wrong"]:
+        raise AssertionError(
+            f"sweep rehearsal: false positives {tally['extras'][:5]}, wrong similarity "
+            f"{tally['wrong'][:5]}"
+        )
+    check_launches("sweep rehearsal", launches, {"similarity_segments"})
+    log("CORRECTNESS: exact")
+    return {"launches": launches["similarity_segments"], "chunk_hits": got}
+
+
+def sweep_orchestrator(
+    n: int = 1_000_000, lengths: str = "uniform", workdir: str | None = None
+) -> dict:
+    """sweep_rehearsal's library through the program's own stage 4, the
+    run a user with a library of short clips makes:
+    ``scene_library.build_sweep_corpus(n, lengths)`` queued into a fresh
+    database under ``workdir`` (default: tempfile's), stage 2, maintenance
+    and deduplicate(skip_hashing=True) with search_prefilter="auto",
+    which declines the prune on random frames, against a fake Hydrus
+    server (``stage4_orchestrator``, the blobs dropped once queued), with
+    HVD_DEBUG_TIMING=1 for this run only (``debug_timing_run``). Raises
+    without CUDA before anything runs, and unless the marked set is the
+    planted pairs, the search cache is fully marked, a re-run marks 0, and
+    kernel 3 launched and no other search kernel (kernel 1 not). Prints
+    stage 2, maintenance and stage 4 seconds, the split of stage 4 that
+    the timing lines give (``stage4_split``: the chunks' fetch, search,
+    mark and cache-update, the search's segment laps and its drain split,
+    whose host seconds hold the hits' similarities), peak host RSS and
+    device memory, and the card. Returns the stage seconds and kernel 3's
+    launches. Not part of main()."""
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch import scene_library as sl
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_orchestrator: CUDA is not available")
+    log(f"sweep orchestrator: N={n}, {lengths}; card: {card_line()}")
+    t0 = time.perf_counter()
+    blobs, expected, n_empty = sl.build_sweep_corpus(n, lengths)
+    pairs = {(a, b) for a, b in expected if a < b}
+    log(
+        f"corpus: {n} videos ({lengths}, {sum(len(b) for b in blobs) // 32} frames, {n_empty} "
+        f"empty), {len(pairs)} planted pairs (synth {time.perf_counter() - t0:.1f}s)"
+    )
+    seconds: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with debug_timing_run() as seen:
+        launches = stage4_orchestrator(
+            "sweep", blobs, pairs, n_empty, sl.MIN_SIM, {"similarity_segments"},
+            after=lambda *a: seconds.update(a[-1]), workdir=workdir, release_blobs=True,
+            search_prefilter="auto",
+        )
+    stage4_split("sweep", seen, n, seconds["stage 4"], pruned=False)
+    log(
+        f"SUMMARY: sweep library of {n} videos ({lengths}, {n_empty} empty) through stage 4: "
+        f"stage2 {seconds['stage 2']:.3f}s, maintenance {seconds['maintenance']:.3f}s, "
+        f"search+mark {seconds['stage 4']:.3f}s ({len(pairs)} pairs marked, exact), kernel 3 "
+        f"launches {launches['similarity_segments']}; DB size {seconds['DB GB']:.2f}G; "
+        f"{peak_rss()}; device memory peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+        f"(torch.cuda.max_memory_allocated); card: {card_line()}. CORRECTNESS: exact"
+    )
+    return {**seconds, "launches": launches["similarity_segments"]}
 
 
 def phase3_cli():
@@ -2740,6 +3048,7 @@ def main() -> int:
     pdq_launches = phase5_stage1()
     seg_timing = phase6_similarity_vs_plain(lib2[0], dev)
     seg_launches = stage4_orchestrator(7, *lib2, {"similarity_segments"}, search_prefilter="none")
+    sweep_launches_7b = sum(sweep_rehearsal(*args)["launches"] for args in SWEEP_SMOKE)
     blobs, expected, n_empty, min_sim = build_library(N_VIDEOS, LONG_CLIP, LONG_PLANTS["auto"])
     block_timing = phase8_block_vs_plain(blobs, dev)
     block_launches = stage4_orchestrator(
@@ -2781,7 +3090,8 @@ def main() -> int:
         "exists_mask_sweep": entry(sweep_launches, timing, 79, 31),
         "pdq_filter": entry(pdq_launches, {"b512": pdq_timing}, "b512"),
         "similarity_segments": entry(
-            seg_launches["similarity_segments"], seg_timing, "mask 75", "mask 1", "sims"
+            seg_launches["similarity_segments"] + sweep_launches_7b, seg_timing, "mask 75",
+            "mask 1", "sims",
         ),
         "exists_counts": entry(
             seg_launches["exists_counts"], seg_timing, "counts 31", "counts 79"

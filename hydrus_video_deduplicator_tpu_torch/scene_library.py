@@ -61,6 +61,15 @@ LONG_MIN = SEG_MAX_FRAMES + 1
 N_DELTA_CROSS = 500
 N_DELTA_PAIRS = 100
 DELTA_SEED = 11
+#: build_sweep_corpus (artifacts/sweep_1m.py): its seed, the frames of a
+#: video in the uniform corpus and the most in the mixed one, and the bytes
+#: of one draw where only the generator's state after the frames is wanted
+#: (a multiple of 4: numpy draws uint8 bytes four to a 32-bit word, so
+#: draws of such sizes leave the generator where one draw of their sum does)
+SWEEP_SEED = 42
+SWEEP_FRAMES = 8
+SWEEP_MAX_FRAMES = 64
+SWEEP_SLAB_BYTES = 1 << 25
 
 
 def frame_counts(
@@ -274,3 +283,102 @@ def build_delta(
         new[b] = _reencode(rng, new[a])
     pairs += [(n + a, n + b) for a, b in new_pairs]
     return new, _expected(lambda i: blobs[i] if i < n else new[i - n], pairs)
+
+
+def sweep_plants(n: int, n_plant: int = N_PLANT, n_far: int = N_PLANT_FAR):
+    """build_sweep_corpus's planted (a, b) pairs in the order they are
+    drawn: adjacent (2k, 2k + 1), then far (2 n_plant + k, 2 n_plant + k +
+    n // 2)."""
+    far0 = 2 * n_plant
+    if n_far > n_plant or far0 + n_far + n // 2 > n:
+        raise ValueError(f"{n} videos cannot hold {n_plant} + {n_far} planted pairs")
+    pairs = [(2 * k, 2 * k + 1) for k in range(n_plant)]
+    return pairs + [(far0 + k, far0 + k + n // 2) for k in range(n_far)]
+
+
+def _sweep_counts(rng, n: int, lengths: str, frames: int) -> np.ndarray:
+    """The first draw of the mixed corpus: each video's frame count; the
+    uniform corpus draws none."""
+    if lengths == "uniform":
+        return np.full(n, frames, dtype=np.int64)
+    if lengths == "mixed":
+        return rng.integers(1, SWEEP_MAX_FRAMES + 1, n)
+    raise ValueError(f"lengths must be 'uniform' or 'mixed', got {lengths!r}")
+
+
+def _sweep_empties(rng, n: int, n_plant: int, n_empty: int) -> np.ndarray:
+    """The mixed corpus's empty hashes, drawn after its frames, past every
+    plant's first video and before n // 2."""
+    return rng.choice(np.arange(3 * n_plant, n - n // 2), size=n_empty, replace=False)
+
+
+def sweep_frame_counts(
+    n: int, lengths: str = "uniform", *, seed: int = SWEEP_SEED, frames: int = SWEEP_FRAMES,
+    n_plant: int = N_PLANT, n_far: int = N_PLANT_FAR, n_empty: int = N_EMPTY,
+) -> np.ndarray:
+    """The frame count of each video of ``build_sweep_corpus`` with the
+    same arguments, the plants and the empty hashes included (0 for an
+    empty hash), without holding the frames: the mixed corpus's byte draw
+    is made in SWEEP_SLAB_BYTES slabs and dropped."""
+    rng = np.random.default_rng(seed)
+    counts = _sweep_counts(rng, n, lengths, frames)
+    if lengths == "mixed":
+        left = int(counts.sum()) * 32
+        while left:
+            step = min(SWEEP_SLAB_BYTES, left)
+            rng.integers(0, 256, (step,), dtype=np.uint8)
+            left -= step
+        counts[_sweep_empties(rng, n, n_plant, n_empty)] = 0
+    for a, b in sweep_plants(n, n_plant, n_far):
+        counts[b] = counts[a]
+    return counts
+
+
+def build_sweep_corpus(
+    n: int, lengths: str = "uniform", *, seed: int = SWEEP_SEED, frames: int = SWEEP_FRAMES,
+    n_plant: int = N_PLANT, n_far: int = N_PLANT_FAR, n_empty: int = N_EMPTY,
+):
+    """The corpus of the JAX package's ``artifacts/sweep_1m.py`` (its
+    ``main``'s draws, in its order, from ``np.random.default_rng(seed)``):
+    (blobs, expected, n_empty).
+
+    - ``"uniform"``: n videos of ``frames`` random frames, no empty hash;
+    - ``"mixed"``: 1..64 random frames a video, then ``n_empty`` empty
+      hashes at indices in [3 n_plant, n - n // 2);
+    - plants (``sweep_plants``): video b becomes video a with 3 random
+      bits of each frame flipped (a position over the blob, then a bit).
+
+    ``expected`` maps (a, b) AND (b, a) to the exact integer similarity
+    of every plant (native matchHashBytes); each must reach MIN_SIM.
+    """
+    rng = np.random.default_rng(seed)
+    counts = _sweep_counts(rng, n, lengths, frames)
+    if lengths == "uniform":
+        raw = rng.integers(0, 256, (n, frames * 32), dtype=np.uint8)
+        blobs = [row.tobytes() for row in raw]
+        del raw
+        n_empty = 0
+    else:
+        flat = rng.integers(0, 256, (int(counts.sum()) * 32,), dtype=np.uint8)
+        offs = np.concatenate([[0], np.cumsum(counts * 32)])
+        fb = flat.tobytes()
+        del flat
+        blobs = [fb[offs[i] : offs[i + 1]] for i in range(n)]
+        del fb
+        for e in _sweep_empties(rng, n, n_plant, n_empty):
+            blobs[int(e)] = b""
+
+    plants = sweep_plants(n, n_plant, n_far)
+    for a, b in plants:
+        src = bytearray(blobs[a])
+        flips = rng.integers(0, len(src), size=max(1, 3 * (len(src) // 32)))
+        for f in flips:
+            src[int(f)] ^= 1 << int(rng.integers(0, 8))
+        blobs[b] = bytes(src)
+    expected = {}
+    for a, b in plants:
+        s = int(matchHashBytes(blobs[a], blobs[b]))
+        if s < MIN_SIM:
+            raise AssertionError(f"planted pair ({a}, {b}) scores {s} < {MIN_SIM}")
+        expected[(a, b)] = expected[(b, a)] = s
+    return blobs, expected, n_empty
