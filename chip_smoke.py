@@ -174,8 +174,10 @@ Phases (each raises on failure; nothing is caught):
    not run again; stage 1 of phase 10's 400 MJPG
    videos on the mesh as phase 5 runs it (no file failing, 100 sampled
    queued hashes equal to compute_phash, the planted set, the PDQ kernel
-   on every member). It prints each member's launches of kernels 1, 3, 4
-   and 5, and the stage-4 seconds beside phases 2 and 9 with the card;
+   on every member). It prints each member's launches and device ms
+   (CUDA events on the member's stream) of kernels 1, 3, 4 and 5, and
+   fails if a member of a run launched no kernel of its route, and the
+   stage-4 seconds beside phases 2 and 9 with the card;
 12. the installed port: the package sources, setup.py, pyproject.toml and
    README.md copied to a temporary directory, a wheel built there (``pip
    wheel --no-deps --no-build-isolation``, no network) and installed with
@@ -281,9 +283,23 @@ Phases 0, 2 and 2b alone:
 c.stage4_orchestrator(2, *lib, {'exists_mask_sweep'}, after=lambda *s: c.phase2b_delta(lib, *s))"
 
 Phase 11's mesh against one device in turns (one, mesh, mesh, one), stage 4
-and stage 1, as PERF.md compares them (``mesh_turns``):
+and stage 1, as PERF.md compares them (``mesh_turns``; each library's
+stage 2 runs once and every turn starts from a copy of its database); on
+four cards, after the dry run:
 
-    python3 -c "import chip_smoke as c; c.mesh_turns()"
+    python3 -c "import chip_smoke as c; c.phase0_build(); c.phase11_dryrun(); c.mesh_turns()"
+
+The fresh 1M libraries on the mesh against one card, in the same turns,
+from one stage 2 (``mesh_rehearsal``; it asks for FRESH_BYTES_PER_FRAME
+bytes a frame for two databases, the saved one and a turn's copy): mean
+200 (1,511 pairs, 66.2 GB asked) and mean 71 (1,557 pairs, 22.8 GB
+asked). Every turn copies the database (16 GB at mean 200); a RAM-backed
+work directory (/dev/shm) keeps those copies off the disk, each run in a
+temporary directory of its own that it removes:
+
+    python3 -c "import chip_smoke as c; c.mesh_rehearsal(1_000_000, median=160.0, \
+workdir='/dev/shm')"
+    python3 -c "import chip_smoke as c; c.mesh_rehearsal(1_000_000, workdir='/dev/shm')"
 
 Phases 0 and 2, then phase 12 on the database phase 2 saved (the installed
 port alone, about 2.5 minutes):
@@ -449,11 +465,16 @@ def file_hash(i: int) -> str:
     return f"{i:016x}" + "00" * 24
 
 
-def card_line() -> str:
+def card_lines() -> list[str]:
+    """Every visible card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -717,6 +738,8 @@ class StageTimers:
         self.pairs: dict[str, int] = {}  # label -> pairs handed to it, where counted
         self.events: dict[str, list] = {}  # kernel wrapper -> CUDA events per call
         self.work: dict[str, list] = {}  # kernel wrapper -> work per call
+        self.member_events: dict[str, list] = {}  # kernel wrapper -> each member's CUDA events
+        self.seg_laps: list = []  # the segment routes' _SegLaps, for their drain split
         self._restore = []
 
     def wrap(self, owner, name: str, label: str, count_pairs: bool = False):
@@ -790,11 +813,14 @@ class StageTimers:
     def count_members(self, mesh, module, name: str, counter: dict, key: str) -> list:
         """Launches of kernel wrapper module.name per member of ``mesh``: a
         call that raised counter[key] launched on the member whose device
-        and stream were current. Returns the per-member counts (a list)."""
+        and stream were current. Returns the per-member counts (a list);
+        ``member_ms(name)`` gives each member's device time of those calls
+        (CUDA events on the member's stream)."""
         import torch
 
         real = getattr(module, name)
         counts = [0] * mesh.size
+        events = self.member_events[name] = [[] for _ in range(mesh.size)]
 
         def member_of(dev) -> int:
             handle = torch.cuda.current_stream(dev).cuda_stream
@@ -805,14 +831,28 @@ class StageTimers:
 
         def counted(*args):
             before = counter[key]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             out = real(*args)
+            end.record()
             if counter[key] > before:
-                counts[member_of(args[0].device)] += counter[key] - before
+                k = member_of(args[0].device)
+                counts[k] += counter[key] - before
+                events[k].append((start, end))
             return out
 
         setattr(module, name, counted)
         self._restore.append((module, name, real))
         return counts
+
+    def member_ms(self, name: str) -> list[float]:
+        """Each member's device ms of the calls count_members counted."""
+        import torch
+
+        for k in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(k)
+        return [sum(s.elapsed_time(e) for s, e in calls) for calls in self.member_events[name]]
 
     def capture(self, owner, name: str, sink: list):
         """Wrap a method so each instance it runs on is appended to sink."""
@@ -838,6 +878,12 @@ class StageTimers:
 
     def work_done(self, name: str) -> int:
         return sum(int(w) for w in self.work.get(name, []))
+
+    def drain(self) -> tuple[float, float, int]:
+        """The segment routes' drain split, summed: (fetch s, host s, row
+        tiles); the engine keeps it whether or not the timing lines print."""
+        laps = self.seg_laps
+        return sum(x.fetch for x in laps), sum(x.host for x in laps), sum(x.tiles for x in laps)
 
 
 def kernel_work() -> dict:
@@ -877,6 +923,7 @@ def search_timers(kernels: set) -> StageTimers:
     timers.wrap(
         engine, "_with_similarities", "hit similarities (matchHashBytes)", count_pairs=True
     )
+    timers.capture(engine._SegLaps, "drain_split", timers.seg_laps)
     work = kernel_work()
     for name in kernels:
         timers.wrap_kernel(work[name][0], name, work[name][1])
@@ -893,6 +940,11 @@ def log_search_timers(phase, timers: StageTimers, kernels: set, total: float | N
     if total is not None:
         rest = total - sum(timers.seconds.values())
         log(f"phase {phase}   remainder (SQLite, marking and the rest): {rest:.3f} s")
+    if timers.seg_laps:
+        fetch, host, tiles = timers.drain()
+        log(f"phase {phase}   drain of the segment routes: fetch (torch.nonzero and the copies, "
+            f"waiting on the kernels) {fetch:.3f} s, host (decode, slot mapping) {host:.3f} s "
+            f"over {tiles} row tiles")
     for name in sorted(kernels):
         kernel_ms = timers.kernel_ms(name)
         done = timers.work_done(name)
@@ -944,7 +996,7 @@ def unsearched_files(db, search_threshold: int) -> int:
 def stage4_orchestrator(
     phase, blobs, expected, n_empty, min_sim, kernels: set, mesh=None,
     save_db: str | None = None, from_db: str | None = None, after=None,
-    workdir: str | None = None, release_blobs: bool = False, **kwargs
+    workdir: str | None = None, release_blobs: bool = False, search: bool = True, **kwargs
 ):
     """Stage 4 of a fresh library through deduplicate(skip_hashing=True)
     with the port's orchestrator (kwargs go to its constructor): the marked
@@ -953,12 +1005,17 @@ def stage4_orchestrator(
     the bucketed route. With ``mesh``, the orchestrator's _device_mesh
     returns it, and every kernel of ``kernels`` must have launched on every
     member. ``save_db`` copies the database there once stage 2 and the
-    maintenance are done; ``from_db`` starts from a copy of such a file
-    instead of filling the queue and running stage 2 (phase 11 so reuses
-    the libraries of phases 2 and 9). ``after(deduper, db, server,
-    seconds)`` runs on the live database once the re-run has passed
-    (phase 2b), with this run's stage-2, maintenance and stage-4 seconds
-    and its database's GB. The database lies in a
+    maintenance are done, and with ``search=False`` the run ends there
+    (returning None); ``from_db`` starts from a copy of such a file
+    instead of filling the queue and running stage 2, and then reads only
+    len(blobs) (phase 11 so reuses the libraries of phases 2 and 9).
+    ``after(deduper, db, server, seconds)`` runs on the live database
+    once the re-run has passed (phase 2b), with this run's stage-2,
+    maintenance and stage-4 seconds, its database's GB, the split of
+    search_timers ("split": label -> s), the drain's ("drain": fetch s,
+    host s, row tiles) and, with ``mesh``, each kernel's launches and
+    device ms per member ("members": name -> (launches, ms)). With
+    ``mesh`` it prints those per-member launches and ms. The database lies in a
     temporary directory under ``workdir`` (default: tempfile's);
     ``release_blobs`` empties the list ``blobs`` once they are queued, so
     stage 4 streams them from SQLite alone, as a user's run does. The
@@ -1037,6 +1094,9 @@ def stage4_orchestrator(
             db_gb = os.path.getsize(DedupeDB.get_db_file_path()) / 1e9
             log(f"phase {phase}: DB size {db_gb:.2f}G")
             assert n_files == n_videos and left == 0, (n_files, left)
+            if not search:
+                db.close()
+                return None
 
             timers = search_timers(kernels)
             per_member = {}
@@ -1082,8 +1142,10 @@ def stage4_orchestrator(
             check_launches(phase, launches, kernels)
             if matmuls[0]:
                 raise AssertionError(f"phase {phase}: the bucketed route ran torch.matmul")
-            for name, counts in sorted(per_member.items()):
-                log(f"phase {phase}   {name} launches per member of {mesh}: {counts}")
+            members = {name: (counts, timers.member_ms(name)) for name, counts in per_member.items()}
+            for name, (counts, ms) in sorted(members.items()):
+                log(f"phase {phase}   {name} per member of {mesh}: launches {counts}, device ms "
+                    + ", ".join(f"{x:.3f}" for x in ms))
                 if not all(counts):
                     raise AssertionError(f"phase {phase}: {name} never launched on some member")
             t0 = time.perf_counter()
@@ -1096,7 +1158,8 @@ def stage4_orchestrator(
             if after is not None:
                 after(deduper, db, server, {
                     "stage 2": t_stage2, "maintenance": t_maint, "DB GB": db_gb,
-                    "stage 4": t_search,
+                    "stage 4": t_search, "split": dict(timers.seconds), "drain": timers.drain(),
+                    "members": members,
                 })
             db.close()
         finally:
@@ -1529,6 +1592,29 @@ def phase2c_mean200() -> int:
     return launches["exists_mask_sweep"]
 
 
+def check_free_space(
+    who: str, n: int, clip: int, median: float, workdir: str, databases: int = 1
+) -> tuple[int, int, int]:
+    """(frames, bytes asked, bytes free): the seed-7 scene library of n
+    videos (``build_library``'s draws) holds ``frames`` frames, and
+    ``workdir`` must have FRESH_BYTES_PER_FRAME bytes free for each frame
+    of each of ``databases`` databases; raises RuntimeError otherwise,
+    before anything is built."""
+    import numpy as np
+
+    from hydrus_video_deduplicator_tpu_torch import scene_library as sl
+
+    frames = int(sl.frame_counts(np.random.default_rng(7), n, clip, median).sum())
+    need = databases * FRESH_BYTES_PER_FRAME * frames
+    free = shutil.disk_usage(workdir).free
+    if need > free:
+        raise RuntimeError(
+            f"{who}: {databases} database(s) of {frames} frames need about {need / 1e9:.2f} GB, "
+            f"{workdir} has {free / 1e9:.2f} GB free"
+        )
+    return frames, need, free
+
+
 def fresh_rehearsal(
     n: int, median: float = 48.0, clip: int = 512, long_plants=(0, 0, 0),
     workdir: str | None = None, timing: bool = False,
@@ -1551,7 +1637,6 @@ def fresh_rehearsal(
     and the peak host RSS. With ``timing``, the run prints the port's
     HVD_DEBUG_TIMING lines too, and ``stage4_split`` checks them and splits
     its stage-4 seconds (phase 2d's line). Not part of main()."""
-    import numpy as np
     import torch
 
     from hydrus_video_deduplicator_tpu_torch import scene_library as sl
@@ -1559,18 +1644,12 @@ def fresh_rehearsal(
     if not torch.cuda.is_available():
         raise RuntimeError("fresh_rehearsal: CUDA is not available")
     workdir = workdir or tempfile.gettempdir()
-    frames = int(sl.frame_counts(np.random.default_rng(7), n, clip, median).sum())
-    need, free = FRESH_BYTES_PER_FRAME * frames, shutil.disk_usage(workdir).free
+    frames, need, free = check_free_space("fresh_rehearsal", n, clip, median, workdir)
     log(
         f"fresh rehearsal: N={n}, median {median:g}, clip {clip}, long plants {long_plants}: "
         f"{frames} frames, {need / 1e9:.2f} GB asked ({FRESH_BYTES_PER_FRAME} bytes a frame), "
         f"{free / 1e9:.2f} GB free under {workdir}; card: {card_line()}"
     )
-    if need > free:
-        raise RuntimeError(
-            f"fresh_rehearsal: the database needs about {need / 1e9:.2f} GB, {workdir} has "
-            f"{free / 1e9:.2f} GB free"
-        )
     blobs, pairs, n_empty, min_sim = build_library(n, clip, long_plants, median)
     kernels = {"exists_mask_sweep"}
     if clip > sl.SEG_MAX_FRAMES:
@@ -2232,7 +2311,9 @@ def phase5_stage1(phase: int = 5, n_scenes: int = STAGE1_SCENES, n_sample: int =
             if launches == 0:
                 raise AssertionError(f"phase {phase}: the PDQ filter kernel never launched")
             if per_member is not None:
-                log(f"phase {phase}   pdq_filter launches per member of {mesh}: {per_member}")
+                ms = timers.member_ms("pdq_filter_batch")
+                log(f"phase {phase}   pdq_filter per member of {mesh}: launches {per_member}, "
+                    "device ms " + ", ".join(f"{x:.3f}" for x in ms))
                 if not all(per_member):
                     raise AssertionError(f"phase {phase}: pdq_filter never launched on some member")
             if sims == 0:
@@ -2674,38 +2755,225 @@ def phase11_choose_mesh():
     return mesh_mod.Mesh(members), "members sharing the one card, each on a stream of its own"
 
 
-def mesh_turns() -> None:
-    """Phase 11's mesh against one device in turns (one, mesh, mesh, one),
-    each a fresh run as its phase makes it: stage 4 of phase 2's library
-    (auto) and of phase 9's N_NONE library (none), then stage 1 of phase
-    10's 400 videos. "One device" is a one-member mesh on cuda:0, so the
-    orchestrator's own choice (a mesh over every visible card) is
-    overridden on both sides. Not part of main()."""
+def phase11_dryrun(mesh=None) -> dict:
+    """``parallel.dryrun.dryrun_multidevice`` on ``mesh`` (default
+    phase11_choose_mesh's): stages 1-7 each equal to one device, stage 5
+    on the layout the dry run builds (each device twice, device-major);
+    it raises on a difference. Logs and returns the dry run's summary."""
+    from hydrus_video_deduplicator_tpu_torch.parallel import dryrun
+    from tests.fake_hydrus import FakeHydrus
+
+    mesh = mesh or phase11_choose_mesh()[0]
+    t0 = time.perf_counter()
+    summary = dryrun.dryrun_multidevice(mesh, FakeHydrus)
+    log(f"phase 11 dry run on {mesh}: {time.perf_counter() - t0:.3f} s, every stage equal to one "
+        f"device: {summary}")
+    return summary
+
+
+#: mesh_turns' and mesh_rehearsal's stage-4 runs in order: one card, the
+#: mesh, the mesh, one card
+MESH_TURNS = ("one", "mesh", "mesh", "one")
+
+#: the parts of a stage-4 turn that stage4_turns prints, by the label of
+#: search_timers' stage they are read from
+TURN_PARTS = {
+    "clustering": "host clustering (reps)",
+    "staging": "column staging",
+    "route": "segment route (launches + drain)",
+    "verify": "stage B (verify)",
+}
+
+
+def turn_split(split: dict, stage4_s: float) -> dict:
+    """A stage-4 run's seconds by part: TURN_PARTS from search_timers'
+    ``split`` (label -> s), the other timed stages, and the rest, which no
+    timer covered (SQLite, the marking, what lies outside the chunks)."""
+    parts = {part: split.get(label, 0.0) for part, label in TURN_PARTS.items()}
+    parts["other timed stages"] = sum(split.values()) - sum(parts.values())
+    parts["rest"] = stage4_s - sum(split.values())
+    return parts
+
+
+def turn_meshes():
+    """({"one": a one-member mesh on cuda:0, "mesh": phase11_choose_mesh's},
+    how the mesh was chosen). With several cards visible the orchestrator's
+    own choice is the mesh, so "one card" has to be a mesh of one."""
     import torch
 
     from hydrus_video_deduplicator_tpu_torch.parallel.mesh import Mesh
 
-    phase0_build()
     mesh, how = phase11_choose_mesh()
-    one = Mesh([torch.device("cuda", 0)])
-    log(f"turns: {one} against {mesh} ({how}); card: {card_line()}")
+    return {"one": Mesh([torch.device("cuda", 0)]), "mesh": mesh}, how
+
+
+def stage4_turns(
+    phase, n: int, lib, kernels: set, saved: str, meshes: dict,
+    workdir: str | None = None, timing: bool = False, **kwargs
+) -> list[dict]:
+    """Stage 4 of an n-video library once per turn of MESH_TURNS, each
+    from a copy of ``saved`` (its database after stage 2) on
+    ``meshes[turn]``, held as stage4_orchestrator holds a run: the planted
+    set (lib = (expected, empty hashes, min_sim)), the cache fully marked,
+    a re-run marking 0, every kernel of ``kernels`` launched on every
+    member. Each turn prints its stage-4 seconds, their split
+    (``turn_split``), the drain's fetch and host seconds, each member's
+    launches and device ms, and each card's device memory peak; with
+    ``timing`` also the HVD_DEBUG_TIMING lines, checked and split by
+    stage4_split. Returns one dict a turn (stage4_orchestrator's ``after``
+    seconds, with "turn" and "peak GB")."""
+    import torch
+
+    cards = range(torch.cuda.device_count())
+    out = []
+    for k, turn in enumerate(MESH_TURNS, 1):
+        name = f"{phase} turn {k} {turn}"
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        seconds: dict = {"turn": turn}
+        with debug_timing_run() if timing else contextlib.nullcontext() as seen:
+            stage4_orchestrator(
+                name, range(n), *lib, kernels, mesh=meshes[turn], from_db=saved,
+                after=lambda *a: seconds.update(a[-1]), workdir=workdir, **kwargs,
+            )
+        if timing:
+            stage4_split(name, seen, n, seconds["stage 4"])
+        seconds["peak GB"] = [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards]
+        parts = turn_split(seconds["split"], seconds["stage 4"])
+        fetch, host, tiles = seconds["drain"]
+        members = "; ".join(
+            f"{kernel} launches {counts}, device ms [" + ", ".join(f"{x:.3f}" for x in ms) + "]"
+            for kernel, (counts, ms) in sorted(seconds["members"].items())
+        )
+        log(
+            f"{name} on {meshes[turn]}: stage 4 {seconds['stage 4']:.3f} s: "
+            + ", ".join(f"{label} {sec:.3f}" for label, sec in parts.items())
+            + f"; drain fetch {fetch:.3f} s, host {host:.3f} s over {tiles} row tiles; "
+            f"{members}; device peak GB per card "
+            + ", ".join(f"{x:.3f}" for x in seconds["peak GB"])
+        )
+        out.append(seconds)
+    return out
+
+
+def mesh_turns() -> None:
+    """Phase 11's mesh against one device in turns (MESH_TURNS: one, mesh,
+    mesh, one): stage 4 of phase 2's library (auto) and of phase 9's
+    N_NONE library (none), each turn from a copy of its library's database
+    after one stage 2 (``stage4_turns``), then stage 1 of phase 10's 400
+    videos as phase 5 runs it (the hasher's decode wait, device wait and
+    hash seconds, and the PDQ kernel's launches and device ms per member).
+    "One device" is a one-member mesh on cuda:0 (``turn_meshes``). Not
+    part of main()."""
+    phase0_build()
+    meshes, how = turn_meshes()
+    log(f"turns: {meshes['one']} against {meshes['mesh']} ({how}); cards: "
+        + "; ".join(card_lines()))
     lib2 = build_library(N_VIDEOS)
     lib_none = build_library(N_NONE, LONG_CLIP, LONG_PLANTS["none"])
-    order = (("one", one), ("mesh", mesh), ("mesh", mesh), ("one", one))
     runs = (
         (lib2, {"exists_mask_sweep"}, "auto"),
         (lib_none, {"similarity_segments", "similarity_block"}, "none"),
     )
-    for lib, kernels, prefilter in runs:
-        for label, m in order:
-            stage4_orchestrator(11, *lib, kernels, mesh=m, search_prefilter=prefilter)
-            log(f"turns stage 4 {prefilter} N={len(lib[0])} {label}: "
-                f"{STAGE4_S[(11, prefilter)]:.3f} s")
-    for label, m in order:
-        phase5_stage1(11, RERANK_SCENES, MESH_STAGE1_SAMPLE, mesh=m)
+    with tempfile.TemporaryDirectory(prefix="hvd_chip_smoke_turns_") as kept:
+        for lib, kernels, prefilter in runs:
+            saved = os.path.join(kept, f"{prefilter}.sqlite")
+            stage4_orchestrator(
+                11, *lib, kernels, save_db=saved, search=False, search_prefilter=prefilter
+            )
+            done = stage4_turns(
+                f"11 {prefilter}", len(lib[0]), lib[1:], kernels, saved, meshes,
+                search_prefilter=prefilter,
+            )
+            log(f"turns stage 4 {prefilter} N={len(lib[0])}: " + ", ".join(
+                f"{t['turn']} {t['stage 4']:.3f} s" for t in done
+            ))
+    for label in MESH_TURNS:
+        phase5_stage1(11, RERANK_SCENES, MESH_STAGE1_SAMPLE, mesh=meshes[label])
         sec, frames = STAGE1_S[11]
         log(f"turns stage 1 {label}: {sec:.3f} s, {frames / sec:.1f} hashed frames/s")
-    log(f"turns done; card: {card_line()}")
+    log("turns done; cards: " + "; ".join(card_lines()))
+
+
+def mesh_rehearsal(
+    n: int, median: float = 48.0, clip: int = 512, long_plants=(0, 0, 0),
+    workdir: str | None = None, timing: bool = False,
+) -> list[dict]:
+    """The fresh-library rehearsal (``fresh_rehearsal``'s library) on the
+    mesh against one card, in turns: it raises before building anything
+    unless ``workdir`` (default: tempfile's) has FRESH_BYTES_PER_FRAME
+    bytes free for each frame of two databases (the saved one and a
+    turn's copy); builds the library and runs stage 2 and the maintenance
+    once (``stage4_orchestrator(..., save_db=, search=False)``, the blobs
+    dropped once queued), saving the database in a temporary directory of
+    its own under ``workdir``; after one small warm-up run on each mesh
+    (every card's context and kernels loaded, the first deduplicate() of
+    the process done), runs stage 4 with search_prefilter="auto" once per
+    turn of MESH_TURNS (one card, mesh, mesh, one card), each from a copy
+    of that database (``stage4_turns``; "mesh" is phase11_choose_mesh's,
+    one member per card where several are visible). It raises unless
+    every turn marks the planted set, leaves the cache fully marked, a
+    re-run marks 0, and every kernel of the route (the sweep and, with
+    clip above 512, kernel 5) launched on every member and no other
+    search kernel. Each turn prints its seconds, split, drain and
+    per-member kernels (``stage4_turns``); with ``timing``, its
+    HVD_DEBUG_TIMING lines too. It ends with one SUMMARY line: each turn's
+    stage-4 seconds, the mesh's mean over one card's, and every card's
+    name and power limit. Returns stage4_turns' dicts. Not part of
+    main()."""
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch import scene_library as sl
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("mesh_rehearsal: CUDA is not available")
+    workdir = workdir or tempfile.gettempdir()
+    frames, need, free = check_free_space("mesh_rehearsal", n, clip, median, workdir, databases=2)
+    log(
+        f"mesh rehearsal: N={n}, median {median:g}, clip {clip}, long plants {long_plants}: "
+        f"{frames} frames, {need / 1e9:.2f} GB asked for two databases, {free / 1e9:.2f} GB free "
+        f"under {workdir}; {os.cpu_count()} host cores"
+    )
+    blobs, pairs, n_empty, min_sim = build_library(n, clip, long_plants, median)
+    with tempfile.TemporaryDirectory(prefix="hvd_mesh_rehearsal_", dir=workdir) as kept:
+        saved = os.path.join(kept, "stage2.sqlite")
+        stage4_orchestrator(
+            "mesh", blobs, pairs, n_empty, min_sim, set(), save_db=saved, search=False,
+            workdir=kept, release_blobs=True, search_prefilter="auto",
+        )
+        db_gb = os.path.getsize(saved) / 1e9
+        meshes, how = turn_meshes()
+        log(
+            f"mesh rehearsal: from {saved} ({db_gb:.2f} GB); turns {', '.join(MESH_TURNS)}: "
+            f"{meshes['one']} and {meshes['mesh']} ({how}); cards: " + "; ".join(card_lines())
+        )
+        phase0_build()
+        kernels = {"exists_mask_sweep"}
+        if clip > sl.SEG_MAX_FRAMES:
+            kernels.add("similarity_block")
+        warm = build_library(2_000, median=median)
+        for label, mesh in meshes.items():
+            stage4_orchestrator(
+                f"mesh warm-up {label}", *warm, {"exists_mask_sweep"}, mesh=mesh,
+                workdir=kept, search_prefilter="auto",
+            )
+        done = stage4_turns(
+            "mesh", n, (pairs, n_empty, min_sim), kernels, saved, meshes, workdir=kept,
+            timing=timing, search_prefilter="auto",
+        )
+    mean = {
+        label: sum(t["stage 4"] for t in done if t["turn"] == label) / MESH_TURNS.count(label)
+        for label in meshes
+    }
+    log(
+        f"SUMMARY: mesh rehearsal, {n}-video library (scene profile, median {median:g}, clip "
+        f"{clip}, {n_empty} empty), stage 2 {STAGE2_S[('mesh', 'auto')]:.3f}s once; stage 4 "
+        f"search+mark per turn: " + ", ".join(f"{t['turn']} {t['stage 4']:.3f}s" for t in done)
+        + f"; mesh / one card {mean['mesh'] / mean['one']:.4f} ({meshes['mesh']} against "
+        f"{meshes['one']}); {len(pairs)} pairs marked in every turn, exact; {peak_rss()}; "
+        f"cards: " + "; ".join(card_lines()) + ". CORRECTNESS: exact"
+    )
+    return done
 
 
 def phase11_mesh(lib2, lib_none, db2: str, db_none: str) -> None:
@@ -2717,15 +2985,9 @@ def phase11_mesh(lib2, lib_none, db2: str, db_none: str) -> None:
     10's 400 videos on it."""
     import torch
 
-    from hydrus_video_deduplicator_tpu_torch.parallel import dryrun
-    from tests.fake_hydrus import FakeHydrus
-
     mesh, how = phase11_choose_mesh()
     log(f"phase 11 mesh: {mesh}, {how}; card: {card_line()}")
-    t0 = time.perf_counter()
-    summary = dryrun.dryrun_multidevice(mesh, FakeHydrus)
-    log(f"phase 11 dry run: {time.perf_counter() - t0:.3f} s, every stage equal to one device: "
-        f"{summary}")
+    phase11_dryrun(mesh)
     # phases 2 and 9 ran with the orchestrator's own choice: one device
     # where one card is visible, else a mesh over all of them
     default = f"the orchestrator's default over {torch.cuda.device_count()} visible card(s)"
