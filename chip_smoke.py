@@ -739,7 +739,8 @@ class StageTimers:
         self.events: dict[str, list] = {}  # kernel wrapper -> CUDA events per call
         self.work: dict[str, list] = {}  # kernel wrapper -> work per call
         self.member_events: dict[str, list] = {}  # kernel wrapper -> each member's CUDA events
-        self.seg_laps: list = []  # the segment routes' _SegLaps, for their drain split
+        self.spans: list | None = None  # the recorder's spans, from record_spans() on
+        self._recording: tuple | None = None  # (recorder switch before, since ns)
         self._restore = []
 
     def wrap(self, owner, name: str, label: str, count_pairs: bool = False):
@@ -866,9 +867,25 @@ class StageTimers:
         setattr(owner, name, method)
         self._restore.append((owner, name, real))
 
+    def record_spans(self):
+        """Switch the port's span recorder on until restore(), which keeps
+        the spans closed meanwhile in ``spans``."""
+        from hydrus_video_deduplicator_tpu_torch.utils import profiling
+
+        self._recording = (profiling.enable(True), time.perf_counter_ns())
+
     def restore(self):
         for owner, name, real in reversed(self._restore):
             setattr(owner, name, real)
+        if self._recording is not None:
+            from hydrus_video_deduplicator_tpu_torch.utils import profiling
+
+            was, since = self._recording
+            self.spans = [r for r in profiling.records() if r.start >= since]
+            profiling.enable(was)
+            if not was:
+                profiling.clear()
+            self._recording = None
 
     def kernel_ms(self, name: str) -> float:
         return sum(s.elapsed_time(e) for s, e in self.events.get(name, []))
@@ -879,11 +896,23 @@ class StageTimers:
     def work_done(self, name: str) -> int:
         return sum(int(w) for w in self.work.get(name, []))
 
+    def span_seconds(self, name: str) -> float:
+        """Seconds of the recorded spans of ``name``, summed."""
+        return sum(r.seconds for r in self.spans or () if r.name == name)
+
+    def span_count(self, name: str) -> int:
+        """The recorded count ``name``, summed over the spans."""
+        return sum(r.counts.get(name, 0) for r in self.spans or ())
+
     def drain(self) -> tuple[float, float, int]:
-        """The segment routes' drain split, summed: (fetch s, host s, row
-        tiles); the engine keeps it whether or not the timing lines print."""
-        laps = self.seg_laps
-        return sum(x.fetch for x in laps), sum(x.host for x in laps), sum(x.tiles for x in laps)
+        """The segment routes' drain split, summed, from the recorder's
+        spans once restore() has run: (fetch s, host s, row tiles), host
+        being the bit decode with the hits' similarities."""
+        return (
+            self.span_seconds("seg.drain.fetch"),
+            self.span_seconds("seg.drain.decode") + self.span_seconds("seg.similarities"),
+            self.span_count("seg.tiles"),
+        )
 
 
 def kernel_work() -> dict:
@@ -923,7 +952,7 @@ def search_timers(kernels: set) -> StageTimers:
     timers.wrap(
         engine, "_with_similarities", "hit similarities (matchHashBytes)", count_pairs=True
     )
-    timers.capture(engine._SegLaps, "drain_split", timers.seg_laps)
+    timers.record_spans()
     work = kernel_work()
     for name in kernels:
         timers.wrap_kernel(work[name][0], name, work[name][1])
@@ -940,8 +969,8 @@ def log_search_timers(phase, timers: StageTimers, kernels: set, total: float | N
     if total is not None:
         rest = total - sum(timers.seconds.values())
         log(f"phase {phase}   remainder (SQLite, marking and the rest): {rest:.3f} s")
-    if timers.seg_laps:
-        fetch, host, tiles = timers.drain()
+    fetch, host, tiles = timers.drain()
+    if tiles:
         log(f"phase {phase}   drain of the segment routes: fetch (torch.nonzero and the copies, "
             f"waiting on the kernels) {fetch:.3f} s, host (decode, slot mapping) {host:.3f} s "
             f"over {tiles} row tiles")
@@ -1763,7 +1792,6 @@ def sweep_rehearsal(
         raise ValueError(f"mode must be 'triangle' or 'square', got {mode!r}")
     from hydrus_video_deduplicator_tpu_torch import scene_library as sl
     from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
-    from hydrus_video_deduplicator_tpu_torch.parallel import engine
     from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
 
     log(f"sweep rehearsal: N={n}, chunk {chunk}, {mode}, {lengths}; card: {card_line()}")
@@ -1788,8 +1816,6 @@ def sweep_rehearsal(
 
     eng = GpuSearchEngine()
     timers = search_timers({"similarity_segments"})
-    seg_laps: list = []
-    timers.capture(engine._SegLaps, "drain_split", seg_laps)
     row_blocks = [0]  # the row blocks of every launch
     launch = seg.similarity_segments
 
@@ -1830,8 +1856,8 @@ def sweep_rehearsal(
 
     sims = timers.seconds.get("hit similarities (matchHashBytes)", 0.0)
     n_hits = timers.pairs.get("hit similarities (matchHashBytes)", 0)
-    fetch = sum(laps.fetch for laps in seg_laps)
-    drain_host = sum(laps.host for laps in seg_laps) - sims
+    fetch = timers.span_seconds("seg.drain.fetch")
+    drain_host = timers.span_seconds("seg.drain.decode")
     kernel_s = timers.kernel_ms("similarity_segments") / 1e3
     slots = timers.work_done("similarity_segments")
     n_steps = col_state["seg_cols"]["n_steps"]
@@ -1847,7 +1873,7 @@ def sweep_rehearsal(
         f"counted), {slots} frame-pair slots computed ((row block, valid step) pairs x 2048 x "
         f"2048; {slots / max(kernel_s, 1e-9):.4g} per s), {slots / square_slots:.4f} of its "
         f"{row_blocks[0]} row blocks against every step; drain fetch {fetch:.3f} s, host decode "
-        f"{drain_host:.3f} s over {sum(laps.tiles for laps in seg_laps)} row tiles; hit "
+        f"{drain_host:.3f} s over {timers.span_count('seg.tiles')} row tiles; hit "
         f"similarities {sims:.3f} s over {n_hits} hits"
     )
     log(

@@ -53,7 +53,7 @@ from .ops import similarity_segments as seg
 from .page_logger import HydrusPageLogger
 from .parallel import mesh as mesh_mod
 from .parallel.engine import GpuSearchEngine, blob_frame_counts, iter_blob_items
-from .utils.profiling import debug_timing
+from .utils.profiling import count, debug_timing, span
 
 if TYPE_CHECKING:
     from collections.abc import Callable, Sequence
@@ -1043,7 +1043,8 @@ class HydrusVideoDeduplicator:
         rows_done = 0
         max_chunks = int(os.environ.get("HVD_SEARCH_MAX_CHUNKS", "0")) or self.SEARCH_MAX_CHUNKS
         chunk_rows = max(self.SEARCH_CHECKPOINT_ROWS, -(-len(files) // max_chunks))
-        # HVD_DEBUG_TIMING: one [chunk-timing] line a chunk, as the JAX package prints
+        # HVD_DEBUG_TIMING: one [chunk-timing] line a chunk, as the JAX package
+        # prints, from the chunk's spans
         chunk_timing = debug_timing()
 
         # one-chunk-ahead prefetch: the next chunk's row blobs are read from
@@ -1057,7 +1058,8 @@ class HydrusVideoDeduplicator:
             conn = sqlite3.connect(db_path)
             try:
                 conn.execute("PRAGMA busy_timeout=30000")
-                out.append(fetch_blobs(conn, ids))
+                with span("chunk.prefetch"):
+                    out.append(fetch_blobs(conn, ids))
             except sqlite3.Error:  # the main thread fetches instead
                 log.exception("row prefetch failed")
             finally:
@@ -1085,66 +1087,73 @@ class HydrusVideoDeduplicator:
                 chunk_files = files[k0 : k0 + chunk_rows]
                 if self.should_skip_step_fn and self.should_skip_step_fn():
                     return num_similar_pairs // 2
-                t0 = time.perf_counter()
-                th, out, chunk_row_ids = prefetched.pop(ci)
-                start_prefetch(ci + 1)
-                th.join()
-                chunk_phashes = out[0] if out else fetch_blobs(self.db, chunk_row_ids)
-                t_fetch = time.perf_counter() - t0
-                # triangle sweep: this chunk compares against the corpus
-                # prefix ending at its own last row
-                chunk_rows_start_pos = n_searched + rows_done
-                col_limit = chunk_rows_start_pos + len(chunk_row_ids)
+                with span("chunk") as chunk_span:
+                    with span("chunk.fetch"):
+                        th, out, chunk_row_ids = prefetched.pop(ci)
+                        start_prefetch(ci + 1)
+                        with span("chunk.prefetch_wait"):
+                            th.join()
+                        chunk_phashes = out[0] if out else fetch_blobs(self.db, chunk_row_ids)
+                    # triangle sweep: this chunk compares against the corpus
+                    # prefix ending at its own last row
+                    chunk_rows_start_pos = n_searched + rows_done
+                    col_limit = chunk_rows_start_pos + len(chunk_row_ids)
 
-                def on_progress(done: int, total: int) -> None:
-                    frac = done / total if total else 1.0
-                    n_done = rows_done + int(len(chunk_row_ids) * min(frac, 1.0))
-                    pct = int(100 * n_done / len(row_ids)) if len(row_ids) else 100
-                    search_bar.n = min(pct, 100)
-                    search_bar.refresh()
-                    if self.update_progress_callback:
-                        self.update_progress_callback(
-                            SearchingForDuplicatesProgress(complete=n_done, total=len(row_ids))
+                    def on_progress(done: int, total: int) -> None:
+                        frac = done / total if total else 1.0
+                        n_done = rows_done + int(len(chunk_row_ids) * min(frac, 1.0))
+                        pct = int(100 * n_done / len(row_ids)) if len(row_ids) else 100
+                        search_bar.n = min(pct, 100)
+                        search_bar.refresh()
+                        if self.update_progress_callback:
+                            self.update_progress_callback(
+                                SearchingForDuplicatesProgress(
+                                    complete=n_done, total=len(row_ids)
+                                )
+                            )
+
+                    search_fn = engine.find_pairs_pruned if use_prune else engine.find_pairs
+                    # rows are the corpus suffix at this chunk's position: the
+                    # engine reuses its column rep cache for the row side
+                    extra = {"rows_at": chunk_rows_start_pos} if use_prune else {}
+                    with span("chunk.search"):
+                        hits = (
+                            search_fn(
+                                chunk_phashes,
+                                all_phashes,
+                                min_sim,
+                                progress=on_progress,
+                                col_state=col_state,
+                                col_limit=col_limit,
+                                **extra,
+                            )
+                            if chunk_phashes
+                            else []
                         )
-
-                search_fn = engine.find_pairs_pruned if use_prune else engine.find_pairs
-                # rows are the corpus suffix at this chunk's position: the
-                # engine reuses its column rep cache for the row side
-                extra = {"rows_at": chunk_rows_start_pos} if use_prune else {}
-                t0 = time.perf_counter()
-                hits = (
-                    search_fn(
-                        chunk_phashes,
-                        all_phashes,
-                        min_sim,
-                        progress=on_progress,
-                        col_state=col_state,
-                        col_limit=col_limit,
-                        **extra,
-                    )
-                    if chunk_phashes
-                    else []
-                )
-                t_search = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                if not mark_hits(hits, chunk_row_ids, chunk_rows_start_pos):
-                    return num_similar_pairs // 2
-                t_mark = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                # the chunk is the checkpoint unit: its cache entries land
-                # atomically in one statement and one commit
-                self.db.conn.executemany(
-                    "UPDATE shape_search_cache SET searched_distance = ? WHERE hash_id = ?",
-                    [(search_threshold, h) for h in chunk_files],
-                )
-                self.db.commit()
+                    count("chunk.hits", len(hits))
+                    with span("chunk.mark"):
+                        marked_all = mark_hits(hits, chunk_row_ids, chunk_rows_start_pos)
+                    if not marked_all:
+                        return num_similar_pairs // 2
+                    # the chunk is the checkpoint unit: its cache entries land
+                    # atomically in one statement and one commit
+                    with span("chunk.cache_update"):
+                        self.db.conn.executemany(
+                            "UPDATE shape_search_cache SET searched_distance = ? WHERE hash_id = ?",
+                            [(search_threshold, h) for h in chunk_files],
+                        )
+                        self.db.commit()
                 if chunk_timing:
+                    seconds = {
+                        part: chunk_span.child_seconds(f"chunk.{part}")
+                        for part in ("fetch", "search", "mark", "cache_update")
+                    }
                     # not rich's print: it reads the tag as markup and drops it
                     builtins.print(
                         f"[chunk-timing] rows {k0}..{k0 + len(chunk_files)}: "
-                        f"fetch {t_fetch:.1f}s search {t_search:.1f}s "
-                        f"mark {t_mark:.1f}s ({len(hits)} hits) "
-                        f"cache-update {time.perf_counter() - t0:.1f}s",
+                        f"fetch {seconds['fetch']:.1f}s search {seconds['search']:.1f}s "
+                        f"mark {seconds['mark']:.1f}s ({len(hits)} hits) "
+                        f"cache-update {seconds['cache_update']:.1f}s",
                         flush=True,
                     )
                 rows_done += len(chunk_row_ids)

@@ -15,12 +15,11 @@ exact. On the CPU they are float32.
 from __future__ import annotations
 
 import sys
-import time
 
 import numpy as np
 import torch
 
-from ..utils.profiling import debug_timing
+from ..utils.profiling import count, debug_timing, span
 from . import similarity as ops_sim
 from .similarity import BYTES, LANES, MATCH_DOT
 
@@ -82,73 +81,78 @@ def verify_pairs(
     other videos to the complement sweeps). Each bucket's results come
     back to the host in one transfer.
 
-    With ``HVD_DEBUG_TIMING`` set it prints the JAX package's
-    ``[verify-timing]`` line on stderr: the host seconds of bucketing the
-    pairs, packing the chunks, dispatching them (the copies to the device
-    and the product) and draining the results (the copy to the host, which
-    waits on the device), over the number of device chunks.
+    The call is the span ``verify``, with the children ``verify.bucket``,
+    ``verify.pack``, ``verify.dispatch`` and ``verify.drain`` and the count
+    ``verify.chunks``. With ``HVD_DEBUG_TIMING`` set it prints the JAX
+    package's ``[verify-timing]`` line on stderr from them: the host
+    seconds of bucketing the pairs, packing the chunks, dispatching them
+    (the copies to the device and the product) and draining the results
+    (the copy to the host, which waits on the device), over the number of
+    device chunks.
     """
-    acc = {"bucket": 0.0, "pack": 0.0, "dispatch": 0.0, "drain": 0.0, "n": 0}
-    t0 = time.perf_counter()
-    out: list[tuple[int, int, int]] = []
-    buckets: dict[int, list[tuple[int, int, int, int]]] = {}
-    for i, j in pairs:
-        a = row_blob[i]
-        b = col_blob[j]
-        if a == b:
-            # identical blobs (self-pairs, exact duplicate files) are always
-            # similarity 100; CPython compares identical objects in O(1)
-            out.append((i, j, 100))
-            continue
-        na = len(a) // BYTES
-        nb = len(b) // BYTES
-        assert na > 0 and nb > 0, (i, j)
-        buckets.setdefault(_bucket_of(max(na, nb)), []).append((i, j, na, nb))
-    acc["bucket"] = time.perf_counter() - t0
-    done = len(out)
-    total = len(pairs)
-    for pad, items in sorted(buckets.items()):
-        p_chunk = pairs_per_chunk(pad)
-        sims_dev = []
-        for k0 in range(0, len(items), p_chunk):
-            chunk = items[k0 : k0 + p_chunk]
-            t0 = time.perf_counter()
-            a_packed = np.zeros((len(chunk), pad, LANES), dtype=np.uint32)
-            b_packed = np.zeros((len(chunk), pad, LANES), dtype=np.uint32)
-            a_cnt = np.zeros(len(chunk), dtype=np.int32)
-            b_cnt = np.zeros(len(chunk), dtype=np.int32)
-            for k, (i, j, na, nb) in enumerate(chunk):
-                a_packed[k, :na] = ops_sim.blobs_to_packed(row_blob[i])
-                b_packed[k, :nb] = ops_sim.blobs_to_packed(col_blob[j])
-                a_cnt[k] = na
-                b_cnt[k] = nb
-            t1 = time.perf_counter()
-            sims_dev.append(
-                _verify_chunk(
-                    ops_sim.to_words(a_packed, device),
-                    torch.from_numpy(a_cnt).to(device),
-                    ops_sim.to_words(b_packed, device),
-                    torch.from_numpy(b_cnt).to(device),
-                    pad,
-                )
-            )
-            t2 = time.perf_counter()
-            acc["pack"] += t1 - t0
-            acc["dispatch"] += t2 - t1
-            acc["n"] += 1
-        t0 = time.perf_counter()
-        sims = torch.cat(sims_dev).cpu().numpy()
-        acc["drain"] += time.perf_counter() - t0
-        for (i, j, _, _), s in zip(items, sims.tolist()):
-            if s >= min_sim:
-                out.append((i, j, s))
-        done += len(items)
-        if progress is not None:
-            progress(done, total)
-    if debug_timing():
+    timing = debug_timing()
+    with span("verify") as call:
+        out: list[tuple[int, int, int]] = []
+        buckets: dict[int, list[tuple[int, int, int, int]]] = {}
+        with span("verify.bucket"):
+            for i, j in pairs:
+                a = row_blob[i]
+                b = col_blob[j]
+                if a == b:
+                    # identical blobs (self-pairs, exact duplicate files) are always
+                    # similarity 100; CPython compares identical objects in O(1)
+                    out.append((i, j, 100))
+                    continue
+                na = len(a) // BYTES
+                nb = len(b) // BYTES
+                assert na > 0 and nb > 0, (i, j)
+                buckets.setdefault(_bucket_of(max(na, nb)), []).append((i, j, na, nb))
+        done = len(out)
+        total = len(pairs)
+        for pad, items in sorted(buckets.items()):
+            p_chunk = pairs_per_chunk(pad)
+            sims_dev = []
+            for k0 in range(0, len(items), p_chunk):
+                chunk = items[k0 : k0 + p_chunk]
+                with span("verify.pack"):
+                    a_packed = np.zeros((len(chunk), pad, LANES), dtype=np.uint32)
+                    b_packed = np.zeros((len(chunk), pad, LANES), dtype=np.uint32)
+                    a_cnt = np.zeros(len(chunk), dtype=np.int32)
+                    b_cnt = np.zeros(len(chunk), dtype=np.int32)
+                    for k, (i, j, na, nb) in enumerate(chunk):
+                        a_packed[k, :na] = ops_sim.blobs_to_packed(row_blob[i])
+                        b_packed[k, :nb] = ops_sim.blobs_to_packed(col_blob[j])
+                        a_cnt[k] = na
+                        b_cnt[k] = nb
+                with span("verify.dispatch"):
+                    sims_dev.append(
+                        _verify_chunk(
+                            ops_sim.to_words(a_packed, device),
+                            torch.from_numpy(a_cnt).to(device),
+                            ops_sim.to_words(b_packed, device),
+                            torch.from_numpy(b_cnt).to(device),
+                            pad,
+                        )
+                    )
+                count("verify.chunks")
+            with span("verify.drain"):
+                sims = torch.cat(sims_dev).cpu().numpy()
+            for (i, j, _, _), s in zip(items, sims.tolist()):
+                if s >= min_sim:
+                    out.append((i, j, s))
+            done += len(items)
+            if progress is not None:
+                progress(done, total)
+    if timing:
+        parts = {
+            name: call.child_seconds(f"verify.{name}")
+            for name in ("bucket", "pack", "dispatch", "drain")
+        }
         print(
             "[verify-timing] bucket {bucket:.1f}s pack {pack:.1f}s dispatch "
-            "{dispatch:.1f}s drain {drain:.1f}s over {n} device chunks".format(**acc),
+            "{dispatch:.1f}s drain {drain:.1f}s over {n} device chunks".format(
+                **parts, n=call.counts.get("verify.chunks", 0)
+            ),
             file=sys.stderr,
             flush=True,
         )

@@ -34,16 +34,17 @@ complements.
 Over a mesh (``parallel.mesh``) both device routes shard their row tiles
 over the members, with the columns replicated to every device.
 
-With ``HVD_DEBUG_TIMING`` set, the pruned search prints ``[prune-timing]``
-laps and both segment routes ``[seg-timing]`` laps with a ``drain split``
-line, in the JAX package's formats (``utils.profiling.Laps``).
+Both searches mark their work with the recorder's spans and counts
+(``utils.profiling.span``; README, "Stage 4's timing lines"). With
+``HVD_DEBUG_TIMING`` set, the pruned search prints ``[prune-timing]`` laps
+and both segment routes ``[seg-timing]`` laps with a ``drain split`` line,
+in the JAX package's formats, from those spans (``utils.profiling.Laps``).
 """
 
 from __future__ import annotations
 
 import itertools
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -56,7 +57,7 @@ from ..ops import similarity as ops_sim
 from ..ops import similarity_block as sb
 from ..ops import similarity_segments as seg
 from ..ops.similarity import BYTES, LANES, TOL
-from ..utils.profiling import Laps
+from ..utils.profiling import NULL_SPAN, Laps, count, span
 from ..vpdq import matchHashBytes
 from .mesh import Mesh, replicate, resolve_mesh, row_slabs
 
@@ -208,32 +209,48 @@ def _with_similarities(hits, row_phashes, all_phashes) -> list[tuple[int, int, i
     probes, not one SELECT per hit."""
     if not hits:
         return []
-    col_blobs = all_phashes
-    if hasattr(all_phashes, "iter_many"):
-        col_blobs = dict(all_phashes.iter_many(sorted({j for _, j in hits})))
-    return [(i, j, int(matchHashBytes(row_phashes[i], col_blobs[j], TOL))) for i, j in hits]
+    with span("seg.similarities"):
+        count("seg.host_hits", len(hits))
+        col_blobs = all_phashes
+        if hasattr(all_phashes, "iter_many"):
+            with span("seg.similarities.fetch"):
+                col_blobs = dict(all_phashes.iter_many(sorted({j for _, j in hits})))
+        return [(i, j, int(matchHashBytes(row_phashes[i], col_blobs[j], TOL))) for i, j in hits]
 
 
 class _SegLaps(Laps):
-    """The ``[seg-timing]`` laps of one segment route, with its drain's
-    split: ``fetch``, the seconds of ``torch.nonzero`` and the copies to
-    the host (they wait on the device), ``host``, the seconds of the bit
-    decode and the slot mapping (and, on the unpruned route, of the hits'
-    similarities), over ``tiles`` row tiles."""
+    """The ``[seg-timing]`` laps of one segment route, printed from its
+    spans: the column staging (``seg.stage``), the first row pack and the
+    first 8 tiles' dispatches, then the rest of the route (``seg.route``,
+    held here as ``route``) with the caller's work on the hits, and the
+    drain's split: ``fetch``, the ``seg.drain.fetch`` spans (``torch.nonzero``
+    and the copies to the host, which wait on the device), ``host``, the
+    ``seg.drain.decode`` spans (the bit decode and the slot mapping) with
+    the caller's similarities, over the ``seg.tiles`` row tiles."""
 
     def __init__(self):
         super().__init__("[seg-timing]")
-        self.fetch = self.host = 0.0
-        self.tiles = 0
+        self.route = NULL_SPAN
+        self.shown = 0.0  # seconds of the route's laps printed so far
 
-    def drain_split(self) -> None:
-        """The route's last lap and its drain split; the JAX route's dense
-        fallback has no counterpart here, so its count is always 0."""
-        self("row tiles + drain")
+    def part(self, label: str, part, *counts: int) -> None:
+        """A lap of one span of the route."""
         if self.on:
+            self.shown += part.seconds
+            self(label, *counts, seconds=part.seconds)
+
+    def drain_split(self, similarities: float = 0.0) -> None:
+        """The route's last lap and its drain split, ``similarities`` the
+        seconds the caller spent on the hits' similarities; the JAX route's
+        dense fallback has no counterpart here, so its count is always 0."""
+        route = self.route
+        self("row tiles + drain", seconds=route.seconds - self.shown + similarities)
+        if self.on:
+            fetch = route.child_seconds("seg.drain.fetch")
+            host = route.child_seconds("seg.drain.decode") + similarities
             print(
-                f"{self.tag} drain split: fetch {self.fetch:.1f}s host {self.host:.1f}s "
-                f"over {self.tiles} row tiles (0 dense-fallback groups)",
+                f"{self.tag} drain split: fetch {fetch:.1f}s host {host:.1f}s "
+                f"over {route.counts.get('seg.tiles', 0)} row tiles (0 dense-fallback groups)",
                 flush=True,
             )
 
@@ -310,72 +327,73 @@ class GpuSearchEngine:
         once per sweep), every other bucket pair the bucketed route.
         """
         assert min_int_similarity >= 1, "minimum similarity must be >= 1"
-        state = col_state if col_state is not None else {}
-        rows = CorpusIndex(row_phashes)
-        cols = state.get("cols_index")
-        if cols is None:
-            cols = state["cols_index"] = CorpusIndex(all_phashes)
-        total_pairs = 0
-        for rb in rows.buckets.values():
-            for cb in cols.buckets.values():
-                n_cols = len(cb.video_idx)
-                if col_limit is not None:
-                    n_cols = int(np.searchsorted(cb.video_idx, col_limit))
-                total_pairs += len(rb.video_idx) * n_cols
-        self._progress_done = 0
-        self._progress_total = total_pairs
-        self._progress_cb = progress
-        out: list[tuple[int, int, int]] = []
-        seg_rows = [
-            (int(i), row_phashes[int(i)])
-            for p, b in sorted(rows.buckets.items())
-            if p <= seg.SEG_MAX_FRAMES
-            for i in b.video_idx
-        ]
-        if seg_rows and any(p <= seg.SEG_MAX_FRAMES for p in cols.buckets):
-            laps = _SegLaps()
-            cols_dev = state.get("seg_cols")
-            if cols_dev is None:
-                cols_dev = state["seg_cols"] = self._stage_columns(seg_columns(cols), laps)
+        laps = _SegLaps()  # reads HVD_DEBUG_TIMING before the first span
+        with span("find_pairs") as call:
+            state = col_state if col_state is not None else {}
+            with span("find_pairs.row_index"):
+                rows = CorpusIndex(row_phashes)
+                seg_rows = [
+                    (int(i), row_phashes[int(i)])
+                    for p, b in sorted(rows.buckets.items())
+                    if p <= seg.SEG_MAX_FRAMES
+                    for i in b.video_idx
+                ]
+            cols = state.get("cols_index")
+            if cols is None:
+                with span("find_pairs.col_index"):
+                    cols = state["cols_index"] = CorpusIndex(all_phashes)
+            total_pairs = 0
+            for rb in rows.buckets.values():
+                for cb in cols.buckets.values():
+                    n_cols = len(cb.video_idx)
+                    if col_limit is not None:
+                        n_cols = int(np.searchsorted(cb.video_idx, col_limit))
+                    total_pairs += len(rb.video_idx) * n_cols
+            self._progress_done = 0
+            self._progress_total = total_pairs
+            self._progress_cb = progress
+            out: list[tuple[int, int, int]] = []
+            if seg_rows and any(p <= seg.SEG_MAX_FRAMES for p in cols.buckets):
+                cols_dev = state.get("seg_cols")
+                if cols_dev is None:
+                    cols_dev = state["seg_cols"] = self._stage_columns(seg_columns(cols), laps)
 
-            def launch(cols, a_words, slot_a, counts_a, valid):
-                words, slots, counts = cols
-                return seg.similarity_segments(
-                    a_words, slot_a, counts_a, words, slots, counts, valid, min_int_similarity
-                )
-
-            hits = self._segment_route(seg_rows, cols_dev, col_limit, launch, laps)
-            t0 = time.perf_counter()
-            out.extend(_with_similarities(hits, row_phashes, all_phashes))
-            # the JAX route finds each hit's similarity inside its drain
-            laps.host += time.perf_counter() - t0
-            laps.drain_split()
-        col_arrays = state.setdefault("col_arrays", {})
-        col_tiles = state.setdefault("col_tiles", {})
-        for pa in rows.buckets:
-            pbs = [
-                pb
-                for pb in cols.buckets
-                if not (pa <= seg.SEG_MAX_FRAMES and pb <= seg.SEG_MAX_FRAMES)
-            ]
-            if not pbs:
-                continue  # every column bucket is covered by the segment route
-            r_idx, r_frames, r_counts = rows.bucket_arrays(pa)
-            for pb in pbs:
-                if pb not in col_arrays:
-                    col_arrays[pb] = cols.bucket_arrays(pb)
-                out.extend(
-                    self._bucket_pair(
-                        pa, r_idx, r_frames, r_counts, pb, *col_arrays[pb],
-                        min_int_similarity, col_tiles, col_limit,
+                def launch(cols, a_words, slot_a, counts_a, valid):
+                    words, slots, counts = cols
+                    return seg.similarity_segments(
+                        a_words, slot_a, counts_a, words, slots, counts, valid, min_int_similarity
                     )
+
+                hits = self._segment_route(seg_rows, cols_dev, col_limit, launch, laps)
+                out.extend(_with_similarities(hits, row_phashes, all_phashes))
+                # the JAX route finds each hit's similarity inside its drain
+                laps.drain_split(call.child_seconds("seg.similarities"))
+            col_arrays = state.setdefault("col_arrays", {})
+            col_tiles = state.setdefault("col_tiles", {})
+            for pa in rows.buckets:
+                pbs = [
+                    pb
+                    for pb in cols.buckets
+                    if not (pa <= seg.SEG_MAX_FRAMES and pb <= seg.SEG_MAX_FRAMES)
+                ]
+                if not pbs:
+                    continue  # every column bucket is covered by the segment route
+                r_idx, r_frames, r_counts = rows.bucket_arrays(pa)
+                for pb in pbs:
+                    if pb not in col_arrays:
+                        col_arrays[pb] = cols.bucket_arrays(pb)
+                    out.extend(
+                        self._bucket_pair(
+                            pa, r_idx, r_frames, r_counts, pb, *col_arrays[pb],
+                            min_int_similarity, col_tiles, col_limit,
+                        )
+                    )
+            out.extend(
+                self._long_video_pairs(
+                    rows, row_phashes, cols, all_phashes, min_int_similarity, col_limit
                 )
-        out.extend(
-            self._long_video_pairs(
-                rows, row_phashes, cols, all_phashes, min_int_similarity, col_limit
             )
-        )
-        return out
+            return out
 
     def _bucket_pair(
         self, pa, r_idx, r_frames, r_counts, pb, c_idx, c_frames, c_counts, min_sim,
@@ -390,52 +408,53 @@ class GpuSearchEngine:
         mesh size; it splits into one slab per member, and every slab is
         launched before any is gathered. The kernel takes runtime sizes, so
         the last tile splits at its real size."""
-        n_live = len(c_idx)
-        if col_limit is not None:
-            n_live = int(np.searchsorted(c_idx, col_limit))
-        if n_live == 0:
-            return []
-        staged = col_tiles.get(pb)
-        if staged is None:
-            # device columns depend only on pb: staged once per sweep
-            staged = col_tiles[pb] = (
-                replicate(ops_sim.to_words(c_frames, self.device), self.mesh),
-                replicate(torch.from_numpy(c_counts).to(self.device), self.mesh),
-            )
-        n = self.mesh.size
-        per_member = max(1, min(-(-len(r_idx) // n), self._output_budget() // (4 * n_live)))
-        tr = per_member * n
-        out = []
-        for i0 in range(0, len(r_idx), tr):
-            n_rows = min(tr, len(r_idx) - i0)
-            sims = []
-            for k, (s0, s1) in enumerate(row_slabs(n_rows, self.mesh)):
-                if s0 == s1:
-                    continue
-                dev = self.mesh.devices[k]
-                with self.mesh.member(k):
-                    rf = ops_sim.to_words(r_frames[i0 + s0 : i0 + s1], dev)
-                    rc = torch.from_numpy(r_counts[i0 + s0 : i0 + s1]).to(dev)
-                    sim = sb.similarity_block(
-                        rf, rc, staged[0][dev][:n_live], staged[1][dev][:n_live], pa, pb
-                    )
-                sims.append((k, i0 + s0, sim))
-            for k, r0, sim in sims:
-                with self.mesh.member(k):
-                    hits = torch.nonzero(sim >= min_sim).cpu().numpy()
-                    if len(hits):
-                        vals = sim[hits[:, 0], hits[:, 1]].cpu().numpy()
-                        out.extend(
-                            zip(
-                                r_idx[r0 + hits[:, 0]].tolist(),
-                                c_idx[hits[:, 1]].tolist(),
-                                vals.tolist(),
-                            )
+        with span("bucket.pair"):
+            n_live = len(c_idx)
+            if col_limit is not None:
+                n_live = int(np.searchsorted(c_idx, col_limit))
+            if n_live == 0:
+                return []
+            staged = col_tiles.get(pb)
+            if staged is None:
+                # device columns depend only on pb: staged once per sweep
+                staged = col_tiles[pb] = (
+                    replicate(ops_sim.to_words(c_frames, self.device), self.mesh),
+                    replicate(torch.from_numpy(c_counts).to(self.device), self.mesh),
+                )
+            n = self.mesh.size
+            per_member = max(1, min(-(-len(r_idx) // n), self._output_budget() // (4 * n_live)))
+            tr = per_member * n
+            out = []
+            for i0 in range(0, len(r_idx), tr):
+                n_rows = min(tr, len(r_idx) - i0)
+                sims = []
+                for k, (s0, s1) in enumerate(row_slabs(n_rows, self.mesh)):
+                    if s0 == s1:
+                        continue
+                    dev = self.mesh.devices[k]
+                    with self.mesh.member(k):
+                        rf = ops_sim.to_words(r_frames[i0 + s0 : i0 + s1], dev)
+                        rc = torch.from_numpy(r_counts[i0 + s0 : i0 + s1]).to(dev)
+                        sim = sb.similarity_block(
+                            rf, rc, staged[0][dev][:n_live], staged[1][dev][:n_live], pa, pb
                         )
-            if self._progress_cb is not None:
-                self._progress_done += n_rows * n_live
-                self._progress_cb(self._progress_done, self._progress_total)
-        return out
+                    sims.append((k, i0 + s0, sim))
+                for k, r0, sim in sims:
+                    with self.mesh.member(k):
+                        hits = torch.nonzero(sim >= min_sim).cpu().numpy()
+                        if len(hits):
+                            vals = sim[hits[:, 0], hits[:, 1]].cpu().numpy()
+                            out.extend(
+                                zip(
+                                    r_idx[r0 + hits[:, 0]].tolist(),
+                                    c_idx[hits[:, 1]].tolist(),
+                                    vals.tolist(),
+                                )
+                            )
+                if self._progress_cb is not None:
+                    self._progress_done += n_rows * n_live
+                    self._progress_cb(self._progress_done, self._progress_total)
+            return out
 
     def _long_video_pairs(self, rows, row_phashes, cols, all_phashes, min_sim, col_limit=None):
         """Exact host-side comparison for videos too long to bucket: (long
@@ -446,40 +465,41 @@ class GpuSearchEngine:
         long_cols = [(j, blob) for j, blob in cols.long if col_limit is None or j < col_limit]
         if not rows.long and not long_cols:
             return out
-        long_row_set = {i for i, _ in rows.long}
-        nonempty_cols = [
-            (j, blob)
-            for j, blob in enumerate(all_phashes)
-            if len(blob) > 0 and (col_limit is None or j < col_limit)
-        ]
-        short_rows = [
-            (i, blob)
-            for i, blob in enumerate(row_phashes)
-            if len(blob) > 0 and i not in long_row_set
-        ]
-        # (index, blob, others, flipped): flipped jobs come from long corpus
-        # columns and emit (row, col) with the long video as the column
-        jobs = [(i, blob, nonempty_cols, False) for i, blob in rows.long]
-        jobs += [(j, blob, short_rows, True) for j, blob in long_cols]
-        if self._progress_cb is not None:
-            self._progress_total += sum(len(j[2]) for j in jobs)
+        with span("long.host"):
+            long_row_set = {i for i, _ in rows.long}
+            nonempty_cols = [
+                (j, blob)
+                for j, blob in enumerate(all_phashes)
+                if len(blob) > 0 and (col_limit is None or j < col_limit)
+            ]
+            short_rows = [
+                (i, blob)
+                for i, blob in enumerate(row_phashes)
+                if len(blob) > 0 and i not in long_row_set
+            ]
+            # (index, blob, others, flipped): flipped jobs come from long corpus
+            # columns and emit (row, col) with the long video as the column
+            jobs = [(i, blob, nonempty_cols, False) for i, blob in rows.long]
+            jobs += [(j, blob, short_rows, True) for j, blob in long_cols]
+            if self._progress_cb is not None:
+                self._progress_total += sum(len(j[2]) for j in jobs)
 
-        def one(job):
-            idx, blob, others, flipped = job
-            hits = []
-            for k, other in others:
-                sim = int(matchHashBytes(blob, other, TOL))
-                if sim >= min_sim:
-                    hits.append((k, idx, sim) if flipped else (idx, k, sim))
-            return hits
+            def one(job):
+                idx, blob, others, flipped = job
+                hits = []
+                for k, other in others:
+                    sim = int(matchHashBytes(blob, other, TOL))
+                    if sim >= min_sim:
+                        hits.append((k, idx, sim) if flipped else (idx, k, sim))
+                return hits
 
-        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
-            for job, hits in zip(jobs, ex.map(one, jobs)):
-                out.extend(hits)
-                if self._progress_cb is not None:
-                    self._progress_done += len(job[2])
-                    self._progress_cb(self._progress_done, self._progress_total)
-        return out
+            with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+                for job, hits in zip(jobs, ex.map(one, jobs)):
+                    out.extend(hits)
+                    if self._progress_cb is not None:
+                        self._progress_done += len(job[2])
+                        self._progress_cb(self._progress_done, self._progress_total)
+            return out
 
     # -- the pruned route (stage 4's main path) ----------------------------
 
@@ -517,124 +537,132 @@ class GpuSearchEngine:
         lap covers the complement sweeps after them.
         """
         assert min_int_similarity >= 1, "minimum similarity must be >= 1"
-        laps = Laps("[prune-timing]")
-        radius_cap = reps_mod.RADIUS_CAP if radius_cap is None else radius_cap
-        state = col_state if col_state is not None else {}
-        prune_state = state.setdefault("prune", {})
+        laps = Laps("[prune-timing]")  # reads HVD_DEBUG_TIMING before the first span
+        with span("find_pairs_pruned") as call:
+            radius_cap = reps_mod.RADIUS_CAP if radius_cap is None else radius_cap
+            state = col_state if col_state is not None else {}
+            prune_state = state.setdefault("prune", {})
 
-        row_counts = blob_frame_counts(row_phashes)
-        col_counts = state.get("col_n_frames")
-        if col_counts is None:
-            col_counts = state["col_n_frames"] = blob_frame_counts(all_phashes)
+            row_counts = blob_frame_counts(row_phashes)
+            col_counts = state.get("col_n_frames")
+            if col_counts is None:
+                col_counts = state["col_n_frames"] = blob_frame_counts(all_phashes)
 
-        seg_row_idx = np.nonzero(
-            (row_counts >= 1) & (row_counts <= seg.SEG_MAX_FRAMES)
-        )[0]
-
-        # The rep cache is valid only for the radius_cap it was built at: a
-        # sweep at prune_tolerance(smaller cap) over reps clustered at a
-        # larger cap breaks the triangle bound and silently drops pairs.
-        rep_cols = prune_state.get("rep_cols")
-        if rep_cols is None or prune_state.get("rep_cols_radius_cap") != radius_cap:
-            seg_col_idx = np.nonzero(
-                (col_counts >= 1) & (col_counts <= seg.SEG_MAX_FRAMES)
+            seg_row_idx = np.nonzero(
+                (row_counts >= 1) & (row_counts <= seg.SEG_MAX_FRAMES)
             )[0]
-            # cluster in slabs so only one slab of column blobs is resident
-            col_reps: list[bytes] = []
-            slab = 1 << 18
-            for s0 in range(0, len(seg_col_idx), slab):
-                sl = seg_col_idx[s0 : s0 + slab]
-                col_reps.extend(
-                    reps_mod.extract_reps(
-                        [b for _, b in iter_blob_items(all_phashes, sl)], radius_cap
+
+            # The rep cache is valid only for the radius_cap it was built at: a
+            # sweep at prune_tolerance(smaller cap) over reps clustered at a
+            # larger cap breaks the triangle bound and silently drops pairs.
+            rep_cols = prune_state.get("rep_cols")
+            with span("prune.col_reps") as part:
+                if rep_cols is None or prune_state.get("rep_cols_radius_cap") != radius_cap:
+                    seg_col_idx = np.nonzero(
+                        (col_counts >= 1) & (col_counts <= seg.SEG_MAX_FRAMES)
+                    )[0]
+                    # cluster in slabs so only one slab of column blobs is resident
+                    col_reps: list[bytes] = []
+                    slab = 1 << 18
+                    for s0 in range(0, len(seg_col_idx), slab):
+                        sl = seg_col_idx[s0 : s0 + slab]
+                        col_reps.extend(
+                            reps_mod.extract_reps(
+                                [b for _, b in iter_blob_items(all_phashes, sl)], radius_cap
+                            )
+                        )
+                    rep_cols = prune_state["rep_cols"] = list(zip(seg_col_idx.tolist(), col_reps))
+                    prune_state["rep_cols_radius_cap"] = radius_cap
+                    # the device staging and the lookup of the old reps are stale
+                    prune_state.pop("seg_cols", None)
+                    prune_state.pop("rep_lookup", None)
+            laps("col reps", seconds=part.seconds)
+
+            with span("prune.row_reps") as part:
+                if rows_at is not None:
+                    rep_lookup = prune_state.get("rep_lookup")
+                    if rep_lookup is None:
+                        rep_lookup = prune_state["rep_lookup"] = dict(rep_cols)
+                    row_reps = [rep_lookup[rows_at + int(i)] for i in seg_row_idx]
+                else:
+                    row_reps = reps_mod.extract_reps(
+                        [b for _, b in iter_blob_items(row_phashes, seg_row_idx)], radius_cap
+                    )
+                seg_rows = list(zip(seg_row_idx.tolist(), row_reps))
+            laps("row reps", seconds=part.seconds)
+
+            self._progress_done = 0
+            self._progress_total = len(seg_rows) * len(rep_cols)
+            self._progress_cb = progress
+            candidates: list[tuple[int, int]] = []
+            if seg_rows and rep_cols:
+                seg_laps = _SegLaps()
+                cols_dev = prune_state.get("seg_cols")
+                if cols_dev is None:
+                    cols_dev = prune_state["seg_cols"] = self._stage_columns(
+                        seg_columns_from_pairs(rep_cols), seg_laps
+                    )
+                tolerance = reps_mod.prune_tolerance(radius_cap)
+
+                def launch(cols, a_words, slot_a, _counts_a, valid):
+                    words, slots, _counts = cols
+                    return seg.exists_mask_sweep(a_words, slot_a, words, slots, valid, tolerance)
+
+                candidates = self._segment_route(seg_rows, cols_dev, col_limit, launch, seg_laps)
+                seg_laps.drain_split()
+            count("prune.candidates", len(candidates))
+            laps(
+                "stage-A sweep ({} candidates)", len(candidates),
+                seconds=call.child_seconds("seg.stage", "seg.route"),
+            )
+
+            # DB-backed columns: fetch every candidate's column blob in batched
+            # IN() probes; candidates inside this chunk's own row span reuse the
+            # in-memory row blobs (nearly all of them at corpus scale, since
+            # every video's self-pair is a candidate)
+            col_blobs_for_verify = all_phashes
+            if hasattr(all_phashes, "iter_many") and candidates:
+                with span("prune.verify_fetch") as part:
+                    need = sorted({j for _, j in candidates})
+                    local: dict[int, bytes] = {}
+                    if rows_at is not None:
+                        n_rows = len(row_phashes)
+                        for j in need:
+                            if rows_at <= j < rows_at + n_rows:
+                                local[j] = row_phashes[j - rows_at]
+                        need = [j for j in need if not (rows_at <= j < rows_at + n_rows)]
+                    if need:
+                        local.update(all_phashes.iter_many(need))
+                    col_blobs_for_verify = local
+                laps("verify-blob fetch ({} off-span)", len(need), seconds=part.seconds)
+            out = pair_verify.verify_pairs(
+                candidates, row_phashes, col_blobs_for_verify, min_int_similarity, self.device
+            )
+            laps("verify ({} hits)", len(out), seconds=call.child_seconds("verify"))
+
+            # Complement sweeps (unpruned find_pairs with the segment-eligible
+            # side emptied — empty blobs match nothing): long rows x every col,
+            # then segment rows x long cols. No overlap, no double count.
+            long_rows = set(np.nonzero(row_counts > seg.SEG_MAX_FRAMES)[0].tolist())
+            long_cols = set(np.nonzero(col_counts > seg.SEG_MAX_FRAMES)[0].tolist())
+            if long_rows:
+                out.extend(
+                    self.find_pairs(
+                        _emptied(row_phashes, long_rows), all_phashes, min_int_similarity,
+                        col_state=state.setdefault("prune_long_rows", {}),
+                        col_limit=col_limit,
                     )
                 )
-            rep_cols = prune_state["rep_cols"] = list(zip(seg_col_idx.tolist(), col_reps))
-            prune_state["rep_cols_radius_cap"] = radius_cap
-            # the device staging and the lookup of the old reps are stale
-            prune_state.pop("seg_cols", None)
-            prune_state.pop("rep_lookup", None)
-        laps("col reps")
-
-        if rows_at is not None:
-            rep_lookup = prune_state.get("rep_lookup")
-            if rep_lookup is None:
-                rep_lookup = prune_state["rep_lookup"] = dict(rep_cols)
-            row_reps = [rep_lookup[rows_at + int(i)] for i in seg_row_idx]
-        else:
-            row_reps = reps_mod.extract_reps(
-                [b for _, b in iter_blob_items(row_phashes, seg_row_idx)], radius_cap
-            )
-        seg_rows = list(zip(seg_row_idx.tolist(), row_reps))
-        laps("row reps")
-
-        self._progress_done = 0
-        self._progress_total = len(seg_rows) * len(rep_cols)
-        self._progress_cb = progress
-        candidates: list[tuple[int, int]] = []
-        if seg_rows and rep_cols:
-            seg_laps = _SegLaps()
-            cols_dev = prune_state.get("seg_cols")
-            if cols_dev is None:
-                cols_dev = prune_state["seg_cols"] = self._stage_columns(
-                    seg_columns_from_pairs(rep_cols), seg_laps
+            if long_cols:
+                out.extend(
+                    self.find_pairs(
+                        _emptied(row_phashes, set(seg_row_idx.tolist())),
+                        _emptied(all_phashes, long_cols), min_int_similarity,
+                        col_state=state.setdefault("prune_long_cols", {}),
+                        col_limit=col_limit,
+                    )
                 )
-            tolerance = reps_mod.prune_tolerance(radius_cap)
-
-            def launch(cols, a_words, slot_a, _counts_a, valid):
-                words, slots, _counts = cols
-                return seg.exists_mask_sweep(a_words, slot_a, words, slots, valid, tolerance)
-
-            candidates = self._segment_route(seg_rows, cols_dev, col_limit, launch, seg_laps)
-            seg_laps.drain_split()
-        laps("stage-A sweep ({} candidates)", len(candidates))
-
-        # DB-backed columns: fetch every candidate's column blob in batched
-        # IN() probes; candidates inside this chunk's own row span reuse the
-        # in-memory row blobs (nearly all of them at corpus scale, since
-        # every video's self-pair is a candidate)
-        col_blobs_for_verify = all_phashes
-        if hasattr(all_phashes, "iter_many") and candidates:
-            need = sorted({j for _, j in candidates})
-            local: dict[int, bytes] = {}
-            if rows_at is not None:
-                n_rows = len(row_phashes)
-                for j in need:
-                    if rows_at <= j < rows_at + n_rows:
-                        local[j] = row_phashes[j - rows_at]
-                need = [j for j in need if not (rows_at <= j < rows_at + n_rows)]
-            if need:
-                local.update(all_phashes.iter_many(need))
-            col_blobs_for_verify = local
-            laps("verify-blob fetch ({} off-span)", len(need))
-        out = pair_verify.verify_pairs(
-            candidates, row_phashes, col_blobs_for_verify, min_int_similarity, self.device
-        )
-        laps("verify ({} hits)", len(out))
-
-        # Complement sweeps (unpruned find_pairs with the segment-eligible
-        # side emptied — empty blobs match nothing): long rows x every col,
-        # then segment rows x long cols. No overlap, no double count.
-        long_rows = set(np.nonzero(row_counts > seg.SEG_MAX_FRAMES)[0].tolist())
-        long_cols = set(np.nonzero(col_counts > seg.SEG_MAX_FRAMES)[0].tolist())
-        if long_rows:
-            out.extend(
-                self.find_pairs(
-                    _emptied(row_phashes, long_rows), all_phashes, min_int_similarity,
-                    col_state=state.setdefault("prune_long_rows", {}),
-                    col_limit=col_limit,
-                )
-            )
-        if long_cols:
-            out.extend(
-                self.find_pairs(
-                    _emptied(row_phashes, set(seg_row_idx.tolist())),
-                    _emptied(all_phashes, long_cols), min_int_similarity,
-                    col_state=state.setdefault("prune_long_cols", {}),
-                    col_limit=col_limit,
-                )
-            )
-        return out
+            return out
 
     def _stage_columns(self, seg_cols: SegColumns, laps: Laps | None = None) -> dict:
         """Pack the column corpus into CHUNK_FRAMES chunks (N_SPLIT per
@@ -647,11 +675,26 @@ class GpuSearchEngine:
         map from flat column slot to corpus index ``smaps``
         [n_steps*STEP_SLOTS] int64 (-1 empty).
 
-        ``laps`` (the caller's ``[seg-timing]`` laps) gets ``col stream+fill``
-        once the host pack and the copies are enqueued; only with
+        The span ``seg.stage`` holds ``seg.stage.pack``, the host pack with
+        the copy of each full group of COL_FILL_STEPS steps, and
+        ``seg.stage.copy``, the last group's copy, the slot counts' and
+        ``replicate``. ``laps`` (the caller's ``[seg-timing]`` laps) gets
+        ``col stream+fill``, the span's seconds; only with
         ``HVD_DEBUG_TIMING`` set does it then wait for the copies (every
         CUDA device of the mesh) and lap ``col staging synced (debug)``."""
         laps = Laps("[seg-timing]") if laps is None else laps
+        with span("seg.stage") as stage:
+            columns = self._pack_columns(seg_cols)
+        laps("col stream+fill", seconds=stage.seconds)
+        if laps.on:
+            for dev in self.mesh.distinct_devices:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            laps("col staging synced (debug)")
+        return columns
+
+    def _pack_columns(self, seg_cols: SegColumns) -> dict:
+        """_stage_columns' work, inside its span."""
         counts = seg_cols.counts
         chunk_id, slot_id, _frame_off, n_chunks = seg.plan_chunks(
             counts, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS
@@ -679,28 +722,24 @@ class GpuSearchEngine:
 
         # a chunk's videos are contiguous from its first frame, so each
         # chunk packs with one blobs_to_packed over its joined bytes
-        items = enumerate(seg_cols.iter_items())
-        for c, group in itertools.groupby(items, key=lambda kv: int(chunk_id[kv[0]])):
-            group = list(group)
-            ks = slice(group[0][0], group[-1][0] + 1)
-            f0 = c * seg.CHUNK_FRAMES
-            if f0 >= g0 + grp:
-                flush()
-                g0 = f0 - f0 % grp
-            n = int(counts[ks].sum())
-            buf_w[f0 - g0 : f0 - g0 + n] = ops_sim.blobs_to_packed(
-                b"".join(blob for _, (_j, blob) in group)
-            )
-            buf_s[f0 - g0 : f0 - g0 + n] = np.repeat(slot_id[ks], counts[ks])
-        flush()
-        slot_counts = torch.from_numpy(slot_counts).to(self.device)
-        copies = [replicate(t, self.mesh) for t in (words, slots, slot_counts)]
-        laps("col stream+fill")
-        if laps.on:
-            for dev in self.mesh.distinct_devices:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-            laps("col staging synced (debug)")
+        with span("seg.stage.pack"):
+            items = enumerate(seg_cols.iter_items())
+            for c, group in itertools.groupby(items, key=lambda kv: int(chunk_id[kv[0]])):
+                group = list(group)
+                ks = slice(group[0][0], group[-1][0] + 1)
+                f0 = c * seg.CHUNK_FRAMES
+                if f0 >= g0 + grp:
+                    flush()
+                    g0 = f0 - f0 % grp
+                n = int(counts[ks].sum())
+                buf_w[f0 - g0 : f0 - g0 + n] = ops_sim.blobs_to_packed(
+                    b"".join(blob for _, (_j, blob) in group)
+                )
+                buf_s[f0 - g0 : f0 - g0 + n] = np.repeat(slot_id[ks], counts[ks])
+        with span("seg.stage.copy"):
+            flush()
+            slot_counts = torch.from_numpy(slot_counts).to(self.device)
+            copies = [replicate(t, self.mesh) for t in (words, slots, slot_counts)]
         return {
             "words": words,
             "slots": slots,
@@ -744,83 +783,91 @@ class GpuSearchEngine:
         drains, so the devices work while the host decodes. Every launch
         is drained (a host wait on its stream) before the route returns.
 
-        ``laps`` (the caller's ``[seg-timing]`` laps) gets ``row pack`` and
-        ``row tile k dispatched`` for the first 8 tiles, and the drain's
-        split; the caller laps ``row tiles + drain`` and prints the split
-        (``_SegLaps.drain_split``) once its work on the hits is done.
+        The route is the span ``seg.route`` (kept as ``laps.route``), with
+        the children ``seg.row_pack`` (the row blocks' pack, then each
+        tile's stack), ``seg.dispatch`` (each tile's copies to the devices
+        and launches), and ``seg.drain.fetch`` and ``seg.drain.decode``
+        (``_drain``), and the count ``seg.tiles``. ``laps`` (the caller's
+        ``[seg-timing]`` laps) gets ``row pack`` and ``row tile k
+        dispatched`` for the first 8 tiles; the caller laps ``row tiles +
+        drain`` and prints the drain's split (``_SegLaps.drain_split``) once
+        its work on the hits is done.
         """
-        smaps = cols_dev["smaps"]
-        n_steps = cols_dev["n_steps"]
-        live = smaps.reshape(n_steps, seg.STEP_SLOTS) >= 0
-        if col_limit is not None:
-            live &= smaps.reshape(n_steps, seg.STEP_SLOTS) < col_limit
-        total_cols = int(live.sum())
-        valid = replicate(
-            torch.from_numpy(live.any(axis=1).astype(np.int32)).to(self.device), self.mesh
-        )
-
-        row_blocks = seg.pack_blocks(seg_rows, seg.ROW_FRAMES, seg.ROW_SLOTS)
-        laps("row pack")
-        n = self.mesh.size
-        per_tile = n * self._row_blocks_per_tile(-(-len(row_blocks) // n), n_steps)
-        out: list[tuple[int, int]] = []
-        pending = None
-        for i0 in range(0, len(row_blocks), per_tile):
-            group = row_blocks[i0 : i0 + per_tile]
-            n_blocks = -(-len(group) // n) * n
-            packed, slot_ids, cnt, rmap = seg.stack_blocks(
-                group, n_blocks, seg.ROW_FRAMES, seg.ROW_SLOTS
+        with span("seg.route") as laps.route:
+            smaps = cols_dev["smaps"]
+            n_steps = cols_dev["n_steps"]
+            live = smaps.reshape(n_steps, seg.STEP_SLOTS) >= 0
+            if col_limit is not None:
+                live &= smaps.reshape(n_steps, seg.STEP_SLOTS) < col_limit
+            total_cols = int(live.sum())
+            valid = replicate(
+                torch.from_numpy(live.any(axis=1).astype(np.int32)).to(self.device), self.mesh
             )
-            cnt = cnt.reshape(-1)
-            slabs = []
-            for k, (b0, b1) in enumerate(row_slabs(n_blocks, self.mesh)):
-                dev = self.mesh.devices[k]
-                fs = slice(b0 * seg.ROW_FRAMES, b1 * seg.ROW_FRAMES)
-                ss = slice(b0 * seg.ROW_SLOTS, b1 * seg.ROW_SLOTS)
-                with self.mesh.member(k):
-                    masks = launch(
-                        cols_dev["on"][dev],
-                        ops_sim.to_words(packed[fs], dev),
-                        torch.from_numpy(slot_ids[fs]).to(dev),
-                        torch.from_numpy(cnt[ss]).to(dev),
-                        valid[dev],
-                    )
-                slabs.append((k, rmap[ss], masks))
-            if i0 < 8 * per_tile:
-                laps("row tile {} dispatched", i0 // per_tile)
-            if pending is not None:
-                self._drain(pending, smaps, col_limit, total_cols, out, laps)
-            pending = slabs
-        if pending is not None:
-            self._drain(pending, smaps, col_limit, total_cols, out, laps)
-        return out
 
-    def _drain(self, slabs, smaps, col_limit, total_cols, out, laps: _SegLaps):
+            with span("seg.row_pack") as part:
+                row_blocks = seg.pack_blocks(seg_rows, seg.ROW_FRAMES, seg.ROW_SLOTS)
+            laps.part("row pack", part)
+            n = self.mesh.size
+            per_tile = n * self._row_blocks_per_tile(-(-len(row_blocks) // n), n_steps)
+            out: list[tuple[int, int]] = []
+            pending = None
+            for i0 in range(0, len(row_blocks), per_tile):
+                group = row_blocks[i0 : i0 + per_tile]
+                n_blocks = -(-len(group) // n) * n
+                with span("seg.row_pack"):
+                    packed, slot_ids, cnt, rmap = seg.stack_blocks(
+                        group, n_blocks, seg.ROW_FRAMES, seg.ROW_SLOTS
+                    )
+                cnt = cnt.reshape(-1)
+                slabs = []
+                with span("seg.dispatch") as part:
+                    for k, (b0, b1) in enumerate(row_slabs(n_blocks, self.mesh)):
+                        dev = self.mesh.devices[k]
+                        fs = slice(b0 * seg.ROW_FRAMES, b1 * seg.ROW_FRAMES)
+                        ss = slice(b0 * seg.ROW_SLOTS, b1 * seg.ROW_SLOTS)
+                        with self.mesh.member(k):
+                            masks = launch(
+                                cols_dev["on"][dev],
+                                ops_sim.to_words(packed[fs], dev),
+                                torch.from_numpy(slot_ids[fs]).to(dev),
+                                torch.from_numpy(cnt[ss]).to(dev),
+                                valid[dev],
+                            )
+                        slabs.append((k, rmap[ss], masks))
+                if i0 < 8 * per_tile:
+                    laps.part("row tile {} dispatched", part, i0 // per_tile)
+                if pending is not None:
+                    self._drain(pending, smaps, col_limit, total_cols, out)
+                pending = slabs
+            if pending is not None:
+                self._drain(pending, smaps, col_limit, total_cols, out)
+            return out
+
+    def _drain(self, slabs, smaps, col_limit, total_cols, out):
         """Candidate pairs from one tile's masks, slab by slab: nonzero
-        words found on the slab's member, their bits decoded on the host,
-        and a slab's mask row r mapped through its slice of the tile's
-        rmap. Adds the tile to ``laps``' drain split."""
+        words found on the slab's member (``seg.drain.fetch``), their bits
+        decoded on the host and a slab's mask row r mapped through its
+        slice of the tile's rmap (``seg.drain.decode``). Counts the tile in
+        ``seg.tiles``."""
         n_rows = 0
         for k, rmap, masks in slabs:
             with self.mesh.member(k):
-                t0 = time.perf_counter()
-                nz = torch.nonzero(masks)
-                if len(nz):
-                    vals = masks[nz[:, 0], nz[:, 1]].cpu().numpy()
-                    nz = nz.cpu().numpy()
-                t1 = time.perf_counter()
-                laps.fetch += t1 - t0
-                if len(nz):
-                    rows_l, cols_l = decode_mask_hits(nz[:, 0], nz[:, 1], vals)
-                    ia = rmap[rows_l]
-                    ib = smaps[cols_l]
-                    keep = (ia >= 0) & (ib >= 0)
-                    if col_limit is not None:
-                        keep &= ib < col_limit
-                    out.extend(zip(ia[keep].tolist(), ib[keep].tolist()))
-                laps.host += time.perf_counter() - t1
+                with span("seg.drain.fetch"):
+                    nz = torch.nonzero(masks)
+                    if len(nz):
+                        vals = masks[nz[:, 0], nz[:, 1]].cpu().numpy()
+                        nz = nz.cpu().numpy()
+                with span("seg.drain.decode"):
+                    if len(nz):
+                        rows_l, cols_l = decode_mask_hits(nz[:, 0], nz[:, 1], vals)
+                        ia = rmap[rows_l]
+                        ib = smaps[cols_l]
+                        keep = (ia >= 0) & (ib >= 0)
+                        if col_limit is not None:
+                            keep &= ib < col_limit
+                        out.extend(zip(ia[keep].tolist(), ib[keep].tolist()))
             n_rows += int((rmap >= 0).sum())
-        laps.tiles += 1
+        count("seg.tiles")
         if self._progress_cb is not None:
             self._progress_done += n_rows * total_cols
             self._progress_cb(self._progress_done, self._progress_total)
