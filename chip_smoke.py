@@ -392,7 +392,7 @@ PRUNE_LAP = re.compile(
 SEG_LAP = re.compile(r"^\[seg-timing\] (.+?): (\d+\.\d)s$", re.M)
 DRAIN_SPLIT = re.compile(
     r"^\[seg-timing\] drain split: fetch (\d+\.\d)s host (\d+\.\d)s over (\d+) row tiles "
-    r"\((\d+) dense-fallback groups\)$", re.M,
+    r"\((\d+) dense-fallback groups\); (\d+) device sims, (\d+) overflowed slabs$", re.M,
 )
 #: on stderr, where a progress bar may precede it on its line
 VERIFY_LINE = re.compile(
@@ -735,7 +735,6 @@ class StageTimers:
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
-        self.pairs: dict[str, int] = {}  # label -> pairs handed to it, where counted
         self.events: dict[str, list] = {}  # kernel wrapper -> CUDA events per call
         self.work: dict[str, list] = {}  # kernel wrapper -> work per call
         self.member_events: dict[str, list] = {}  # kernel wrapper -> each member's CUDA events
@@ -743,15 +742,13 @@ class StageTimers:
         self._recording: tuple | None = None  # (recorder switch before, since ns)
         self._restore = []
 
-    def wrap(self, owner, name: str, label: str, count_pairs: bool = False):
-        """Time each call; with count_pairs, also sum len(first argument)."""
+    def wrap(self, owner, name: str, label: str):
+        """Time each call."""
         import torch
 
         real = getattr(owner, name)
 
         def timed(*args, **kwargs):
-            if count_pairs:
-                self.pairs[label] = self.pairs.get(label, 0) + len(args[0])
             t0 = time.perf_counter()
             try:
                 return real(*args, **kwargs)
@@ -949,9 +946,7 @@ def search_timers(kernels: set) -> StageTimers:
     timers.wrap(engine.CorpusIndex, "bucket_arrays", "bucket packing (host)")
     timers.wrap(engine, "_emptied", "complement inputs (host)")
     timers.wrap(pair_verify, "verify_pairs", "stage B (verify)")
-    timers.wrap(
-        engine, "_with_similarities", "hit similarities (matchHashBytes)", count_pairs=True
-    )
+    timers.wrap(engine, "_with_similarities", "hit similarities (matchHashBytes)")
     timers.record_spans()
     work = kernel_work()
     for name in kernels:
@@ -964,8 +959,7 @@ def log_search_timers(phase, timers: StageTimers, kernels: set, total: float | N
     the run they were taken in, also what no timer covered (SQLite, the
     marking and the rest: the timed stages do not nest)."""
     for label, sec in timers.seconds.items():
-        n = f", {timers.pairs[label]} pairs" if label in timers.pairs else ""
-        log(f"phase {phase}   {label}: {sec:.3f} s{n}")
+        log(f"phase {phase}   {label}: {sec:.3f} s")
     if total is not None:
         rest = total - sum(timers.seconds.values())
         log(f"phase {phase}   remainder (SQLite, marking and the rest): {rest:.3f} s")
@@ -973,7 +967,9 @@ def log_search_timers(phase, timers: StageTimers, kernels: set, total: float | N
     if tiles:
         log(f"phase {phase}   drain of the segment routes: fetch (torch.nonzero and the copies, "
             f"waiting on the kernels) {fetch:.3f} s, host (decode, slot mapping) {host:.3f} s "
-            f"over {tiles} row tiles")
+            f"over {tiles} row tiles; {timers.span_count('seg.device_sims')} similarities "
+            f"read from kernel 3's hit lists, {timers.span_count('seg.host_hits')} scored on "
+            f"the host ({timers.span_count('seg.sims_overflow')} slabs overflowed)")
     for name in sorted(kernels):
         kernel_ms = timers.kernel_ms(name)
         done = timers.work_done(name)
@@ -1330,12 +1326,13 @@ def stage4_split(phase, seen: dict, n_rows: int, t_stage4: float, pruned: bool =
         f"phase {phase}   {'stage A' if pruned else 'the search'}'s segment laps (s): "
         + ", ".join(f"{label} {sec:.1f}" for label, sec in seg.items())
         + f"; drain fetch {sum(d[0] for d in drain):.1f}, host {sum(d[1] for d in drain):.1f} "
-        f"over {int(sum(d[2] for d in drain))} row tiles"
+        f"over {int(sum(d[2] for d in drain))} row tiles, {int(sum(d[4] for d in drain))} "
+        f"device sims, {int(sum(d[5] for d in drain))} overflowed slabs"
         + (
             f"; stage B (verify): bucket {sum(v[0] for v in verify):.1f}, pack "
             f"{sum(v[1] for v in verify):.1f}, dispatch {sum(v[2] for v in verify):.1f}, drain "
             f"{sum(v[3] for v in verify):.1f} over {int(sum(v[4] for v in verify))} device chunks"
-            if pruned else " (the host seconds hold the hits' similarities)"
+            if pruned else " (the host seconds hold the overflowed slabs' similarities)"
         )
     )
 
@@ -1855,7 +1852,8 @@ def sweep_rehearsal(
     peak_device = torch.cuda.max_memory_allocated()
 
     sims = timers.seconds.get("hit similarities (matchHashBytes)", 0.0)
-    n_hits = timers.pairs.get("hit similarities (matchHashBytes)", 0)
+    n_hits = timers.span_count("seg.host_hits")
+    device_sims = timers.span_count("seg.device_sims")
     fetch = timers.span_seconds("seg.drain.fetch")
     drain_host = timers.span_seconds("seg.drain.decode")
     kernel_s = timers.kernel_ms("similarity_segments") / 1e3
@@ -1874,7 +1872,9 @@ def sweep_rehearsal(
         f"2048; {slots / max(kernel_s, 1e-9):.4g} per s), {slots / square_slots:.4f} of its "
         f"{row_blocks[0]} row blocks against every step; drain fetch {fetch:.3f} s, host decode "
         f"{drain_host:.3f} s over {timers.span_count('seg.tiles')} row tiles; hit "
-        f"similarities {sims:.3f} s over {n_hits} hits"
+        f"similarities {sims:.3f} s over {n_hits} hits scored on the host, {device_sims} "
+        f"read from kernel 3's hit lists ({timers.span_count('seg.sims_overflow')} slabs "
+        f"overflowed)"
     )
     log(
         f"sweep rehearsal: {peak_rss()}; device memory peak {peak_device / 1e9:.3f} GB "
@@ -2397,6 +2397,44 @@ def phase5_stage1(phase: int = 5, n_scenes: int = STAGE1_SCENES, n_sample: int =
     return launches
 
 
+def sorted_hits(hits, n_cols: int):
+    """(hit count, records sorted by row then column) of a kernel 3 hit
+    list, its records those it holds."""
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+
+    n = int(seg.hit_count(hits))
+    records = hits[1 : 1 + min(n, hits.shape[0] - 1)].to(torch.int64)
+    return n, records[torch.argsort(records[:, 0] * n_cols + records[:, 1])]
+
+
+def short_list_holds_its_capacity(sims_args, plain_hits, dev) -> None:
+    """Kernel 3 at min_sim 1 with a hit list of half the hits' capacity, a
+    prefix of a larger list of sentinels: the count is every hit, the
+    records are distinct hits of the plain list (plain_hits, which holds
+    them all), and no record past the capacity is written."""
+    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+
+    n_hits = int(seg.hit_count(plain_hits))
+    capacity = n_hits // 2
+    sentinel = -7
+    room = seg.hit_list(n_hits, dev).fill_(sentinel)
+    mask = seg.similarity_segments(*sims_args, 1, room[: capacity + 1])
+    n, records = sorted_hits(room[: capacity + 1], mask.shape[1])
+    held = set(map(tuple, records.tolist()))
+    want = set(map(tuple, sorted_hits(plain_hits, mask.shape[1])[1].tolist()))
+    if n != n_hits or len(held) != capacity or not held <= want:
+        raise AssertionError(
+            f"phase 6 short list: count {n} of {n_hits} hits, {len(held)} distinct records of "
+            f"{capacity}, {len(held - want)} not hits of the plain list"
+        )
+    if not bool((room[capacity + 1 :] == sentinel).all()):
+        raise AssertionError(f"phase 6 short list: records written past the capacity {capacity}")
+    log(f"phase 6 short list: capacity {capacity} of {n_hits} hits at min_sim 1: count exact, "
+        f"{capacity} distinct plain hits held, nothing written past the capacity")
+
+
 def phase6_similarity_vs_plain(blobs, dev):
     import torch
 
@@ -2438,10 +2476,26 @@ def phase6_similarity_vs_plain(blobs, dev):
     assert n_pad > 0 and n_empty > 0 and int(slot_a[5]) >= 0
     sims_args = (a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid)
     sweep_args = (a_words, slot_a, b_words, slot_b)
+    # the unpruned route's form: the mask with a hit list, the kernel's and
+    # the plain version's each of the plain count's capacity
+    lists = {}  # label -> (the kernel's hit list, the plain version's)
+    for min_sim in (75, 1):
+        probe = seg.hit_list(0, dev)
+        seg.similarity_mask_plain(*sims_args, min_sim, probe)
+        n_hits = int(seg.hit_count(probe))
+        lists[f"mask {min_sim} + list"] = (seg.hit_list(n_hits, dev), seg.hit_list(n_hits, dev))
     cases = {  # label -> (kernel call, plain call)
         "sims": (
             lambda: seg.similarity_segments(*sims_args),
             lambda: seg.similarity_segments_plain(*sims_args),
+        ),
+        "mask 75 + list": (
+            lambda: seg.similarity_segments(*sims_args, 75, lists["mask 75 + list"][0]),
+            lambda: seg.similarity_mask_plain(*sims_args, 75, lists["mask 75 + list"][1]),
+        ),
+        "mask 1 + list": (
+            lambda: seg.similarity_segments(*sims_args, 1, lists["mask 1 + list"][0]),
+            lambda: seg.similarity_mask_plain(*sims_args, 1, lists["mask 1 + list"][1]),
         ),
         "mask 75": (
             lambda: seg.similarity_segments(*sims_args, 75),
@@ -2475,6 +2529,16 @@ def phase6_similarity_vs_plain(blobs, dev):
             raise AssertionError(f"phase 6 {label}: kernel != plain: max abs error {err}")
         if n_nonzero == 0:
             raise AssertionError(f"phase 6 {label}: the plain version found nothing")
+        written = ()  # the hit list's header and records, as the kernel writes them
+        if label in lists:
+            (n_got, got_records), (n_want, want_records) = (
+                sorted_hits(h, got.shape[1]) for h in lists[label]
+            )
+            if n_got != n_want or not torch.equal(got_records, want_records):
+                raise AssertionError(
+                    f"phase 6 {label}: the kernel's hit list != plain: {n_got} hits, plain {n_want}"
+                )
+            written = (lists[label][0][: n_got + 1],)
         if label.startswith("every-step"):
             inputs, steps = sweep_args, every_step
         elif label.startswith("counts"):
@@ -2482,7 +2546,7 @@ def phase6_similarity_vs_plain(blobs, dev):
         else:
             inputs, steps = sims_args, valid
         pairs = segment_frame_pairs(slot_a, slot_b, steps)
-        bound_ms, bound_by, int8_ms = hamming_bound(pairs, *inputs, got)
+        bound_ms, bound_by, int8_ms = hamming_bound(pairs, *inputs, got, *written)
         del got, want
         ms = cuda_time_ms(kernel, 10)
         plain_ms = cuda_time_ms(plain, 1, warmup=0)  # the check above warmed it
@@ -2495,7 +2559,11 @@ def phase6_similarity_vs_plain(blobs, dev):
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-    report_work("6 (mask 75)", a_words, slot_a, b_words, slot_b, valid, result["mask 75"]["ms"])
+    short_list_holds_its_capacity(sims_args, lists["mask 1 + list"][1], dev)
+    report_work(
+        "6 (mask 75 + list)", a_words, slot_a, b_words, slot_b, valid,
+        result["mask 75 + list"]["ms"],
+    )
     report_work(
         "6 (every-step sweep 79)", a_words, slot_a, b_words, slot_b, every_step,
         result["every-step sweep 79"]["ms"],
@@ -3378,8 +3446,8 @@ def main() -> int:
         "exists_mask_sweep": entry(sweep_launches, timing, 79, 31),
         "pdq_filter": entry(pdq_launches, {"b512": pdq_timing}, "b512"),
         "similarity_segments": entry(
-            seg_launches["similarity_segments"] + sweep_launches_7b, seg_timing, "mask 75",
-            "mask 1", "sims",
+            seg_launches["similarity_segments"] + sweep_launches_7b, seg_timing,
+            "mask 75 + list", "mask 1 + list", "mask 75", "mask 1", "sims",
         ),
         "exists_counts": entry(
             seg_launches["exists_counts"], seg_timing, "counts 31", "counts 79"

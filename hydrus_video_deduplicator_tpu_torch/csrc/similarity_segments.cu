@@ -16,7 +16,10 @@
 //            out [n_row_blocks*256, n_steps*256] int32 (kernel 3's contract);
 //   kMask    sim >= min_sim, row-packed in the sweep's layout: bit b of
 //            out[i*8 + w, col] <=> row slot 32w+b of row block i
-//            out [n_row_blocks*8, n_steps*256] int32;
+//            out [n_row_blocks*8, n_steps*256] int32; and, given a hit
+//            list, each hit once more as a record (row slot i*256 + 32w
+//            + b, col, sim): the unpruned route reads the similarities
+//            there instead of scoring its hits again on the host;
 //   kCounts  ma alone, out [n_row_blocks*256, n_steps*256] int32 (kernel 6);
 //
 // fa, fb are the per-slot frame counts; column index col = j*256 + s*64 + cs
@@ -49,6 +52,19 @@
 // atomicAdd, ma in the low half and mb in the high half (ma <= 2048,
 // mb <= 512), and the epilogue reads each counter once, computes the
 // integer similarity and writes it. A chunk without any match writes zeros.
+//
+// The hit list (mask mode, optional): a 64-bit counter, then `capacity`
+// records of three int32. After a chunk's mask words are written, each
+// warp adds the hits of its 32 words to the counter with one atomicAdd
+// and writes each record at its place in the warp's range (a shuffle scan
+// of the words' popcounts). The counter counts every hit of the launch;
+// records past the capacity are not written, and the caller then decodes
+// the mask instead. The records come in no particular order. The
+// recording is a function out of line that works from the block's and
+// the thread's indices and the shared counter tile: written inline, or
+// handed values from the kernel's registers, it kept values live through
+// the sweep and cost the tensor-core loop register moves (the mask mode
+// ran 3-38 % slower on an H100 in those forms, PERF.md).
 //
 // Why binary and not int8: mma_rates.py measured on the H100
 // 2.0e13 hash pairs/s for the b1 product (1.0e13 for the two-product
@@ -103,6 +119,7 @@ constexpr int kGroups = kChunkFrames / 8;                // column fragments of 
 constexpr int kStride = kChunkFrames + 8;                // staged words, word-major
 constexpr int kTile = kRowSlots * kChunkSlots;           // counters per chunk
 static_assert(kThreads == kChunkFrames && kGroups == 64, "one thread per chunk frame");
+static_assert(kMaskWords * kChunkSlots == kThreads, "one mask word a thread");
 
 enum Mode { kSims = 0, kMask = 1, kCounts = 2 };
 
@@ -125,6 +142,45 @@ static_assert(kOffAmask % 8 == 0 && kOffFlags % 8 == 0, "64-bit words stay align
 
 __device__ __forceinline__ int in_range(int v, int n) { return (v >= 0 && v < n) ? v : -1; }
 
+// The hit list's records of the mask word this thread of the mask epilogue
+// wrote for chunk s (column slot t % 64, row slots 32 (t / 64) + its set
+// bits); every thread of the block calls it, so a warp's shuffles see all
+// 32 lanes (one word a thread: the static_assert above).
+__device__ __noinline__ void record_hits(int* hits, int capacity, unsigned word, int s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned* s_cnt = reinterpret_cast<const unsigned*>(smem + kOffCnt);
+  const int* s_fa = reinterpret_cast<const int*>(smem + kOffFa);
+  const int* s_fb = reinterpret_cast<const int*>(smem + kOffFb);
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int w = t / kChunkSlots;
+  const int cs = t % kChunkSlots;
+  const int n = __popc(word);
+  int incl = n;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  if (total == 0) return;  // uniform in the warp
+  unsigned long long at = 0ull;
+  if (lane == 31) {
+    at = atomicAdd(reinterpret_cast<unsigned long long*>(hits), (unsigned long long)total);
+  }
+  at = __shfl_sync(0xffffffffu, at, 31) + (unsigned long long)(incl - n);
+  int* records = hits + 3;
+  const int col = blockIdx.x * kStepSlots + s * kChunkSlots + cs;
+  for (unsigned m = word; m != 0u && at < (unsigned long long)capacity; m &= m - 1, ++at) {
+    const int row = w * 32 + __ffs((int)m) - 1;
+    const unsigned v = s_cnt[row * kChunkSlots + cs];
+    int* r = records + 3 * at;
+    r[0] = blockIdx.y * kRowSlots + row;
+    r[1] = col;
+    r[2] = min(100 * (int)(v & 0xffffu) / s_fa[row], 100 * (int)(v >> 16) / s_fb[cs]);
+  }
+}
+
 // One block per (column step j = blockIdx.x, row block i = blockIdx.y).
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -136,7 +192,7 @@ similarity_segments_kernel(const unsigned* __restrict__ a,
                            const int* __restrict__ counts_b,
                            const int* __restrict__ valid,
                            int* __restrict__ out, int n_steps, int tol,
-                           int min_sim) {
+                           int min_sim, int* __restrict__ hits, int capacity) {
   constexpr bool kBothWays = MODE != kCounts;  // mb and the fractions
   constexpr int kOutRows = MODE == kMask ? kMaskWords : kRowSlots;
   const int j = blockIdx.x;
@@ -276,6 +332,7 @@ similarity_segments_kernel(const unsigned* __restrict__ a,
 
     // epilogue: each counter is read and turned into the output by one thread
     if (MODE == kMask) {
+      unsigned word_kept = 0u;
       for (int k = t; k < kMaskWords * kChunkSlots; k += kThreads) {
         const int w = k / kChunkSlots;
         const int cs = k % kChunkSlots;
@@ -289,7 +346,9 @@ similarity_segments_kernel(const unsigned* __restrict__ a,
           if (sim >= min_sim) word |= 1u << bit;
         }
         out_chunk[w * stride + cs] = (int)word;
+        word_kept = word;
       }
+      if (hits != nullptr) record_hits(hits, capacity, word_kept, s);
     } else {
       for (int k = t; k < kTile; k += kThreads) {
         const int row = k / kChunkSlots;
@@ -314,16 +373,20 @@ template <int MODE>
 int launch(const void* a, const void* slot_a, const void* counts_a,
            const void* b, const void* slot_b, const void* counts_b,
            const void* valid, void* out, int n_row_blocks, int n_steps,
-           int tol, int min_sim, cudaStream_t stream) {
+           int tol, int min_sim, void* hits, int capacity, cudaStream_t stream) {
   auto kernel = similarity_segments_kernel<MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
+  if (hits != nullptr) {
+    err = cudaMemsetAsync(hits, 0, sizeof(unsigned long long), stream);  // the counter
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid((unsigned)n_steps, (unsigned)n_row_blocks);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       (const unsigned*)a, (const int*)slot_a, (const int*)counts_a,
       (const unsigned*)b, (const int*)slot_b, (const int*)counts_b,
-      (const int*)valid, (int*)out, n_steps, tol, min_sim);
+      (const int*)valid, (int*)out, n_steps, tol, min_sim, (int*)hits, capacity);
   return (int)cudaGetLastError();
 }
 
@@ -335,14 +398,18 @@ int launch(const void* a, const void* slot_a, const void* counts_a,
 // [n_steps*2048, 8] int32, slot_b [n_steps*2048] int32, counts_b
 // [n_steps*256] int32, valid [n_steps] int32; out as MODE says (mode 0
 // sims, 1 mask, 2 counts; counts_a and counts_b may be null in mode 2).
-// Launches on `stream` without synchronising and returns the CUDA error
-// (0 on success).
+// hits, mode 1 only and else null: an 8-byte aligned int32 buffer
+// [capacity + 1, 3], its first two words the 64-bit hit counter (zeroed
+// here before the launch), then `capacity` records (row slot, column
+// slot, similarity). Launches on `stream` without synchronising and
+// returns the CUDA error (0 on success).
 extern "C" int hvd_similarity_segments(const void* a, const void* slot_a,
                                        const void* counts_a, const void* b,
                                        const void* slot_b, const void* counts_b,
                                        const void* valid, void* out,
                                        int n_row_blocks, int n_steps, int tol,
-                                       int mode, int min_sim, void* stream) {
+                                       int mode, int min_sim, void* hits,
+                                       int capacity, void* stream) {
   if (n_row_blocks <= 0 || n_row_blocks > 65535 || n_steps <= 0 || tol < 0 ||
       tol >= 128) {
     return (int)cudaErrorInvalidValue;
@@ -350,18 +417,22 @@ extern "C" int hvd_similarity_segments(const void* a, const void* slot_a,
   if (mode != kCounts && (counts_a == nullptr || counts_b == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (hits != nullptr &&
+      (mode != kMask || capacity < 0 || reinterpret_cast<uintptr_t>(hits) % 8 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case kSims:
       return launch<kSims>(a, slot_a, counts_a, b, slot_b, counts_b, valid, out,
-                           n_row_blocks, n_steps, tol, min_sim, st);
+                           n_row_blocks, n_steps, tol, min_sim, nullptr, 0, st);
     case kMask:
       if (min_sim < 1) return (int)cudaErrorInvalidValue;
       return launch<kMask>(a, slot_a, counts_a, b, slot_b, counts_b, valid, out,
-                           n_row_blocks, n_steps, tol, min_sim, st);
+                           n_row_blocks, n_steps, tol, min_sim, hits, capacity, st);
     case kCounts:
       return launch<kCounts>(a, slot_a, counts_a, b, slot_b, counts_b, valid,
-                             out, n_row_blocks, n_steps, tol, min_sim, st);
+                             out, n_row_blocks, n_steps, tol, min_sim, nullptr, 0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

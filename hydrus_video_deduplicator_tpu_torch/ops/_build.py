@@ -49,7 +49,7 @@ KERNELS: dict[str, tuple[list[str], dict[str, list]]] = {
     ),
     "similarity_segments": (
         [],
-        {"hvd_similarity_segments": [_ptr] * 8 + [_int] * 5 + [_ptr]},
+        {"hvd_similarity_segments": [_ptr] * 8 + [_int] * 5 + [_ptr, _int, _ptr]},
     ),
     "similarity_block": (
         [],

@@ -21,7 +21,8 @@ The segment similarity kernel serves the unpruned search: per slot pair
 the integer similarity min(100*ma // max(fa,1), 100*mb // max(fb,1)) at
 tolerance TOL, where ma (mb) counts the row (column) slot's frames that
 match some frame of the other slot and fa (fb) are the slots' frame
-counts; or only whether it reaches min_sim, in the sweep's mask layout;
+counts; or only whether it reaches min_sim, in the sweep's mask layout, with
+optionally each such hit's similarity in a compact hit list (``hit_list``);
 or ma alone at any tolerance.
 
 Wrappers and their kernels: ``exists_mask_sweep`` and
@@ -67,6 +68,41 @@ LAUNCHES = {
     "similarity_segments": 0,
     "exists_counts": 0,
 }
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3's hit list
+# ---------------------------------------------------------------------------
+
+
+def hit_list(capacity: int, device) -> torch.Tensor:
+    """An empty hit list of ``capacity`` records for kernel 3's mask mode:
+    int32 [capacity + 1, 3]. Row 0 is the header: the launch's hit count as
+    one int64 in its first two words (``hit_count``). Rows 1.. hold the
+    records (row slot within the launch i*ROW_SLOTS + 32w + b, column slot,
+    integer similarity), in no particular order; a launch counts every hit
+    and writes at most ``capacity`` records. A prefix ``hits[: c + 1]``
+    is a list of capacity c."""
+    return torch.empty((capacity + 1, 3), dtype=torch.int32, device=device)
+
+
+def hit_count(hits: torch.Tensor) -> torch.Tensor:
+    """The hit count of a hit list: an int64 tensor of one element, on the
+    list's device (reading it waits for the launch)."""
+    return hits[0, :2].view(torch.int64)
+
+
+def _check_hits(hits: torch.Tensor, device) -> int:
+    """A hit list's capacity; raises on what the kernel does not take."""
+    if hits.device != device:
+        raise ValueError(f"hits is on {hits.device}, a_words on {device}")
+    if hits.dtype != torch.int32:
+        raise TypeError(f"hits must be {torch.int32}, got {hits.dtype}")
+    if hits.dim() != 2 or hits.shape[0] < 1 or hits.shape[1] != 3 or not hits.is_contiguous():
+        raise ValueError(f"hits must be a contiguous [capacity + 1, 3], got {tuple(hits.shape)}")
+    if hits.shape[0] - 1 >= 1 << 31:
+        raise ValueError(f"a hit list holds fewer than 2**31 records, got {hits.shape[0] - 1}")
+    return hits.shape[0] - 1
 
 
 # ---------------------------------------------------------------------------
@@ -346,27 +382,41 @@ def similarity_segments_plain(a_words, slot_a, counts_a, b_words, slot_b, counts
 
 
 def similarity_mask_plain(
-    a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, min_sim: int
+    a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, min_sim: int, hits=None
 ):
     """Plain version of kernel 3's mask mode: sim >= min_sim, row-packed in
     the sweep's layout ([n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS]
     int32), which is what the JAX route's scan body makes of the kernel's
-    output. min_sim >= 1, so empty slots never set a bit."""
+    output. min_sim >= 1, so empty slots never set a bit. With a hit list
+    (``hit_list``), also its count and records, as the kernel writes
+    them."""
     if min_sim < 1:
         raise ValueError(f"min_sim must be >= 1, got {min_sim}")
     n_row_blocks, n_steps = _check_sweep_args(
         a_words, slot_a, b_words, slot_b, valid, TOL, counts_a, counts_b
     )
+    capacity = None if hits is None else _check_hits(hits, a_words.device)
     out = torch.zeros(
         (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device
     )
+    found = 0
     for i, j, ma, mb in _plain_slot_counts(
         a_words, slot_a, b_words, slot_b, valid, TOL, both_ways=True
     ):
         sim = _plain_similarity(ma, mb, counts_a, counts_b, i, j)
+        hit = sim >= min_sim
         out[i * MASK_WORDS : (i + 1) * MASK_WORDS, j * STEP_SLOTS : (j + 1) * STEP_SLOTS] = (
-            _pack_rows(sim >= min_sim)
+            _pack_rows(hit)
         )
+        if hits is not None:
+            s, rs, cs = torch.nonzero(hit, as_tuple=True)
+            row, col = i * ROW_SLOTS + rs, j * STEP_SLOTS + s * CHUNK_SLOTS + cs
+            records = torch.stack([row, col, sim[s, rs, cs].long()], 1)
+            kept = records[: max(0, capacity - found)]
+            hits[1 + found : 1 + found + len(kept)] = kept.to(torch.int32)
+            found += len(records)
+    if hits is not None:
+        hit_count(hits).fill_(found)
     return out
 
 
@@ -468,12 +518,16 @@ def exists_mask_kernel(a_words, slot_a, b_words, slot_b, tolerance: int):
 
 
 def _segments(
-    name, mode, a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, tol, min_sim
+    name, mode, a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, tol, min_sim,
+    hits=None,
 ):
     n_row_blocks, n_steps = _check_sweep_args(
         a_words, slot_a, b_words, slot_b, valid, tol, counts_a, counts_b
     )
     _check_cuda(a_words, b_words)
+    capacity = 0 if hits is None else _check_hits(hits, a_words.device)
+    if hits is not None and hits.data_ptr() % 8:
+        raise ValueError("hits must be 8-byte aligned")
     rows = n_row_blocks * (MASK_WORDS if mode == _MASK else ROW_SLOTS)
     out = torch.empty((rows, n_steps * STEP_SLOTS), dtype=torch.int32, device=a_words.device)
     counts = {} if counts_a is None else {"counts_a": counts_a, "counts_b": counts_b}
@@ -487,11 +541,13 @@ def _segments(
         b_words.data_ptr(), slot_b.data_ptr(),
         None if counts_b is None else counts_b.data_ptr(),
         valid.data_ptr(), out.data_ptr(), n_row_blocks, n_steps, tol, mode, min_sim,
+        None if hits is None else hits.data_ptr(), capacity,
     )
 
 
 def similarity_segments(
-    a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, min_sim: int | None = None
+    a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid, min_sim: int | None = None,
+    hits: torch.Tensor | None = None,
 ):
     """Kernel 3: slot-level similarity of one row tile against the whole
     column corpus at tolerance TOL.
@@ -502,7 +558,10 @@ def similarity_segments(
     similarities [RA_S, CB_S] int32 (``similarity_segments_plain``); with
     an int >= 1, the row-packed masks of sim >= min_sim in the sweep's
     layout (``similarity_mask_plain``), which is what the unpruned route
-    drains: the dense similarities never reach device memory.
+    drains: the dense similarities never reach device memory. ``hits``
+    (mask mode only), a ``hit_list`` on the frames' device, receives the
+    launch's hit count and, up to its capacity, each hit's record with its
+    similarity; the mask is written all the same.
 
     CUDA tensors launch ``csrc/similarity_segments.cu`` (or raise); CPU
     tensors take the plain version. ``LAUNCHES["similarity_segments"]``
@@ -511,12 +570,16 @@ def similarity_segments(
     args = (a_words, slot_a, counts_a, b_words, slot_b, counts_b, valid)
     if min_sim is not None and min_sim < 1:
         raise ValueError(f"min_sim must be >= 1, got {min_sim}")
+    if hits is not None and min_sim is None:
+        raise ValueError("a hit list needs the mask mode (min_sim)")
     if a_words.device.type == "cpu":
         if min_sim is None:
             return similarity_segments_plain(*args)
-        return similarity_mask_plain(*args, min_sim)
+        return similarity_mask_plain(*args, min_sim, hits)
     mode = _SIMS if min_sim is None else _MASK
-    return _segments("similarity_segments", mode, *args, TOL, 0 if min_sim is None else min_sim)
+    return _segments(
+        "similarity_segments", mode, *args, TOL, 0 if min_sim is None else min_sim, hits
+    )
 
 
 def exists_counts(a_words, slot_a, b_words, slot_b, valid, tolerance: int):

@@ -21,8 +21,10 @@ videos of up to SEG_MAX_FRAMES frames take the segment route: the full
 column frames are staged on the device once per sweep, each row tile is
 one launch of the segment similarity kernel (``ops.similarity_segments``,
 a hand-written CUDA kernel; its plain version on the CPU) in its mask
-mode, the masks drain as stage A's do, and each hit's integer similarity
-is native ``matchHashBytes`` on the host. Pairs with a video of
+mode with a hit list, and the drain reads each hit's integer similarity
+from that list, as the kernel computed it. A slab whose hits outgrow its
+list drains its mask as stage A's do, and only those hits are scored on
+the host (native ``matchHashBytes``). Pairs with a video of
 SEG_MAX_FRAMES+1..MAX_BUCKET frames take the bucketed route: videos padded
 to a power of two, each (row tile, column tile) of a bucket pair one launch
 of the bucketed similarity kernel (``ops.similarity_block``, a
@@ -202,20 +204,29 @@ def _emptied(phashes, keep: set) -> list[bytes]:
     return [phashes[i] if i in keep else b"" for i in range(len(phashes))]
 
 
-def _with_similarities(hits, row_phashes, all_phashes) -> list[tuple[int, int, int]]:
-    """(row, col, integer similarity) for hit (row, col) pairs: native
-    matchHashBytes, the kernel's own value by construction. DB-backed
-    columns (``iter_many``) fetch the hit columns' blobs in batched IN()
-    probes, not one SELECT per hit."""
-    if not hits:
-        return []
+def _with_similarities(hits, row_phashes, all_phashes, fallback) -> list[tuple[int, int, int]]:
+    """The unpruned segment route's hits, every one a (row, col, integer
+    similarity) triple: the route's triples carry kernel 3's similarities;
+    each ``hits[a:b]`` for (a, b) in ``fallback`` holds the (row, col)
+    pairs of a slab whose hit list overflowed, scored here with native
+    matchHashBytes, the kernel's own value by construction. Fills them in
+    place and returns ``hits``. DB-backed columns (``iter_many``) fetch
+    the scored columns' blobs in batched IN() probes, not one SELECT per
+    hit; without a fallback nothing is fetched."""
     with span("seg.similarities"):
-        count("seg.host_hits", len(hits))
+        count("seg.host_hits", sum(b - a for a, b in fallback))
+        if not fallback:
+            return hits
         col_blobs = all_phashes
         if hasattr(all_phashes, "iter_many"):
             with span("seg.similarities.fetch"):
-                col_blobs = dict(all_phashes.iter_many(sorted({j for _, j in hits})))
-        return [(i, j, int(matchHashBytes(row_phashes[i], col_blobs[j], TOL))) for i, j in hits]
+                need = sorted({j for a, b in fallback for _, j in hits[a:b]})
+                col_blobs = dict(all_phashes.iter_many(need))
+        for a, b in fallback:
+            hits[a:b] = [
+                (i, j, int(matchHashBytes(row_phashes[i], col_blobs[j], TOL))) for i, j in hits[a:b]
+            ]
+        return hits
 
 
 class _SegLaps(Laps):
@@ -226,7 +237,10 @@ class _SegLaps(Laps):
     drain's split: ``fetch``, the ``seg.drain.fetch`` spans (``torch.nonzero``
     and the copies to the host, which wait on the device), ``host``, the
     ``seg.drain.decode`` spans (the bit decode and the slot mapping) with
-    the caller's similarities, over the ``seg.tiles`` row tiles."""
+    the caller's similarities, over the ``seg.tiles`` row tiles; then the
+    hits whose similarity came from kernel 3's hit lists
+    (``seg.device_sims``) and the slabs that fell back to their mask
+    (``seg.sims_overflow``), both 0 on stage A's route."""
 
     def __init__(self):
         super().__init__("[seg-timing]")
@@ -248,9 +262,12 @@ class _SegLaps(Laps):
         if self.on:
             fetch = route.child_seconds("seg.drain.fetch")
             host = route.child_seconds("seg.drain.decode") + similarities
+            counts = route.counts
             print(
                 f"{self.tag} drain split: fetch {fetch:.1f}s host {host:.1f}s "
-                f"over {route.counts.get('seg.tiles', 0)} row tiles (0 dense-fallback groups)",
+                f"over {counts.get('seg.tiles', 0)} row tiles (0 dense-fallback groups); "
+                f"{counts.get('seg.device_sims', 0)} device sims, "
+                f"{counts.get('seg.sims_overflow', 0)} overflowed slabs",
                 flush=True,
             )
 
@@ -293,6 +310,10 @@ class GpuSearchEngine:
     CPU_MASK_BUDGET_BYTES = 1 << 26
     #: column steps staged per host->device copy of the column corpus
     COL_FILL_STEPS = 64
+    #: a slab's hit list holds this many records per row slot plus
+    #: HITS_SLACK: every video hits itself once, and near copies are few
+    HITS_PER_ROW = 4
+    HITS_SLACK = 1 << 16
 
     def __init__(self, device: "str | torch.device | None" = None, mesh: Mesh | None = None):
         self.mesh = resolve_mesh(device, mesh)
@@ -358,14 +379,16 @@ class GpuSearchEngine:
                 if cols_dev is None:
                     cols_dev = state["seg_cols"] = self._stage_columns(seg_columns(cols), laps)
 
-                def launch(cols, a_words, slot_a, counts_a, valid):
+                def launch(cols, a_words, slot_a, counts_a, valid, hits):
                     words, slots, counts = cols
                     return seg.similarity_segments(
-                        a_words, slot_a, counts_a, words, slots, counts, valid, min_int_similarity
+                        a_words, slot_a, counts_a, words, slots, counts, valid,
+                        min_int_similarity, hits,
                     )
 
-                hits = self._segment_route(seg_rows, cols_dev, col_limit, launch, laps)
-                out.extend(_with_similarities(hits, row_phashes, all_phashes))
+                fallback: list[tuple[int, int]] = []
+                hits = self._segment_route(seg_rows, cols_dev, col_limit, launch, laps, fallback)
+                out.extend(_with_similarities(hits, row_phashes, all_phashes, fallback))
                 # the JAX route finds each hit's similarity inside its drain
                 laps.drain_split(call.child_seconds("seg.similarities"))
             col_arrays = state.setdefault("col_arrays", {})
@@ -604,7 +627,7 @@ class GpuSearchEngine:
                     )
                 tolerance = reps_mod.prune_tolerance(radius_cap)
 
-                def launch(cols, a_words, slot_a, _counts_a, valid):
+                def launch(cols, a_words, slot_a, _counts_a, valid, _hits):
                     words, slots, _counts = cols
                     return seg.exists_mask_sweep(a_words, slot_a, words, slots, valid, tolerance)
 
@@ -769,19 +792,34 @@ class GpuSearchEngine:
         mask_bytes = seg.MASK_WORDS * n_steps * seg.STEP_SLOTS * 4
         return max(1, min(n_row_blocks, 65535, self._output_budget() // mask_bytes))
 
-    def _segment_route(self, seg_rows, cols_dev, col_limit, launch, laps: _SegLaps):
+    def _hit_capacity(self, live_rows: int) -> int:
+        """Records of the hit list of a slab of up to ``live_rows`` row videos."""
+        return self.HITS_PER_ROW * live_rows + self.HITS_SLACK
+
+    def _segment_route(
+        self, seg_rows, cols_dev, col_limit, launch, laps: _SegLaps, fallback: list | None = None
+    ):
         """Hit (row, col) corpus pairs of seg_rows against staged columns.
 
         Each row tile's blocks round up to a multiple of the mesh size
         (padding blocks hold only slot id -1, which never matches) and
         split into one slab per member; each slab is one ``launch(cols,
-        a_words, slot_a, counts_a, valid)`` of a mask kernel on its member
-        against the whole column corpus on that member's device (the sweep
-        for stage A, the similarity kernel for the unpruned search);
+        a_words, slot_a, counts_a, valid, hits)`` of a mask kernel on its
+        member against the whole column corpus on that member's device (the
+        sweep for stage A, the similarity kernel for the unpruned search);
         per-step validity skips steps holding no column below col_limit.
         The next tile is launched on every member before the previous one
         drains, so the devices work while the host decodes. Every launch
         is drained (a host wait on its stream) before the route returns.
+
+        ``fallback`` None (stage A): ``hits`` is None and the route returns
+        (row, col) pairs. A list (the unpruned search): each slab's launch
+        gets a hit list (``seg.hit_list``) of ``_hit_capacity`` records for
+        the row slots of a full slab, one of two lists per member that
+        alternate between tiles, and the route returns (row, col, similarity) triples, but
+        for the hits of a slab whose list overflowed: those are (row, col)
+        pairs, decoded from its mask, at ``out[a:b]`` for each (a, b) the
+        route appends to ``fallback`` (``_with_similarities`` scores them).
 
         The route is the span ``seg.route`` (kept as ``laps.route``), with
         the children ``seg.row_pack`` (the row blocks' pack, then each
@@ -791,7 +829,8 @@ class GpuSearchEngine:
         ``[seg-timing]`` laps) gets ``row pack`` and ``row tile k
         dispatched`` for the first 8 tiles; the caller laps ``row tiles +
         drain`` and prints the drain's split (``_SegLaps.drain_split``) once
-        its work on the hits is done.
+        its work on the hits is done. ``_drain`` adds the counts
+        ``seg.device_sims`` and ``seg.sims_overflow`` with hit lists.
         """
         with span("seg.route") as laps.route:
             smaps = cols_dev["smaps"]
@@ -809,7 +848,9 @@ class GpuSearchEngine:
             laps.part("row pack", part)
             n = self.mesh.size
             per_tile = n * self._row_blocks_per_tile(-(-len(row_blocks) // n), n_steps)
-            out: list[tuple[int, int]] = []
+            hit_lists: dict = {}  # (member, tile parity) -> its hit list
+            list_capacity = self._hit_capacity(per_tile // n * seg.ROW_SLOTS)
+            out: list = []
             pending = None
             for i0 in range(0, len(row_blocks), per_tile):
                 group = row_blocks[i0 : i0 + per_tile]
@@ -826,48 +867,89 @@ class GpuSearchEngine:
                         fs = slice(b0 * seg.ROW_FRAMES, b1 * seg.ROW_FRAMES)
                         ss = slice(b0 * seg.ROW_SLOTS, b1 * seg.ROW_SLOTS)
                         with self.mesh.member(k):
+                            hits = None
+                            if fallback is not None:
+                                key = (k, i0 // per_tile % 2)
+                                if key not in hit_lists:
+                                    hit_lists[key] = seg.hit_list(list_capacity, dev)
+                                hits = hit_lists[key]
                             masks = launch(
                                 cols_dev["on"][dev],
                                 ops_sim.to_words(packed[fs], dev),
                                 torch.from_numpy(slot_ids[fs]).to(dev),
                                 torch.from_numpy(cnt[ss]).to(dev),
                                 valid[dev],
+                                hits,
                             )
-                        slabs.append((k, rmap[ss], masks))
+                        slabs.append((k, rmap[ss], masks, hits))
                 if i0 < 8 * per_tile:
                     laps.part("row tile {} dispatched", part, i0 // per_tile)
                 if pending is not None:
-                    self._drain(pending, smaps, col_limit, total_cols, out)
+                    self._drain(pending, smaps, col_limit, total_cols, out, fallback)
                 pending = slabs
             if pending is not None:
-                self._drain(pending, smaps, col_limit, total_cols, out)
+                self._drain(pending, smaps, col_limit, total_cols, out, fallback)
             return out
 
-    def _drain(self, slabs, smaps, col_limit, total_cols, out):
-        """Candidate pairs from one tile's masks, slab by slab: nonzero
-        words found on the slab's member (``seg.drain.fetch``), their bits
-        decoded on the host and a slab's mask row r mapped through its
-        slice of the tile's rmap (``seg.drain.decode``). Counts the tile in
-        ``seg.tiles``."""
-        n_rows = 0
-        for k, rmap, masks in slabs:
+    def _drain(self, slabs, smaps, col_limit, total_cols, out, fallback):
+        """Hits from one tile, slab by slab, a slab's row r mapped through
+        its slice of the tile's rmap and column c through smaps, columns at
+        or past col_limit dropped, in the order of the mask's set bits
+        (word row, column, bit). A slab with a hit list that held every
+        hit: its count and records copied from the slab's member
+        (``seg.drain.fetch``, the records sorted there), then (row, col,
+        similarity) triples (``seg.drain.decode``). Any other slab: nonzero
+        mask words found on its member (``seg.drain.fetch``), their bits
+        decoded on the host into (row, col) pairs (``seg.drain.decode``),
+        whose range of ``out`` goes to ``fallback`` where the slab had a
+        list. Counts the tile in ``seg.tiles`` and, with hit lists, its
+        listed hits in ``seg.device_sims`` and its overflowed slabs in
+        ``seg.sims_overflow``."""
+        n_rows = n_sims = n_overflow = 0
+        for k, rmap, masks, hits in slabs:
             with self.mesh.member(k):
                 with span("seg.drain.fetch"):
-                    nz = torch.nonzero(masks)
-                    if len(nz):
-                        vals = masks[nz[:, 0], nz[:, 1]].cpu().numpy()
-                        nz = nz.cpu().numpy()
+                    records = None
+                    if hits is not None:
+                        found = int(seg.hit_count(hits))
+                        if found <= hits.shape[0] - 1:
+                            records = hits[1 : 1 + found].to(torch.int64)
+                            rows_l, cols_l = records[:, 0], records[:, 1]
+                            # the mask's order: word row, column, bit
+                            key = ((rows_l >> 5) * masks.shape[1] + cols_l) * 32 + (rows_l & 31)
+                            records = records[torch.argsort(key)].cpu().numpy()
+                        else:
+                            n_overflow += 1
+                    if records is None:
+                        nz = torch.nonzero(masks)
+                        if len(nz):
+                            vals = masks[nz[:, 0], nz[:, 1]].cpu().numpy()
+                            nz = nz.cpu().numpy()
                 with span("seg.drain.decode"):
-                    if len(nz):
+                    if records is not None:
+                        rows_l, cols_l, sims = records.T
+                    elif len(nz):
                         rows_l, cols_l = decode_mask_hits(nz[:, 0], nz[:, 1], vals)
-                        ia = rmap[rows_l]
-                        ib = smaps[cols_l]
-                        keep = (ia >= 0) & (ib >= 0)
-                        if col_limit is not None:
-                            keep &= ib < col_limit
+                    else:
+                        rows_l = cols_l = np.zeros(0, np.int64)
+                    ia = rmap[rows_l]
+                    ib = smaps[cols_l]
+                    keep = (ia >= 0) & (ib >= 0)
+                    if col_limit is not None:
+                        keep &= ib < col_limit
+                    a = len(out)
+                    if records is not None:
+                        out.extend(zip(ia[keep].tolist(), ib[keep].tolist(), sims[keep].tolist()))
+                        n_sims += len(out) - a
+                    else:
                         out.extend(zip(ia[keep].tolist(), ib[keep].tolist()))
+                        if hits is not None and len(out) > a:
+                            fallback.append((a, len(out)))
             n_rows += int((rmap >= 0).sum())
         count("seg.tiles")
+        if fallback is not None:
+            count("seg.device_sims", n_sims)
+            count("seg.sims_overflow", n_overflow)
         if self._progress_cb is not None:
             self._progress_done += n_rows * total_cols
             self._progress_cb(self._progress_done, self._progress_total)

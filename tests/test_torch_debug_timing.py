@@ -165,7 +165,8 @@ def test_verify_timing_line_equals_the_jax_one(rng, monkeypatch, capsys):
 def test_seg_laps_count_every_drained_tile(library, monkeypatch, capsys):
     """The unpruned segment route one row block a tile: a dispatch lap for
     each of the first 8 tiles only, then row tiles + drain and the drain
-    split over every tile launched, after the staging laps."""
+    split over every tile launched, after the staging laps, with every hit
+    read from kernel 3's hit lists and no slab overflowed."""
     blobs, planted = library
     drained = []
     monkeypatch.setattr(GpuSearchEngine, "_row_blocks_per_tile", lambda self, n, s: 1)
@@ -187,7 +188,7 @@ def test_seg_laps_count_every_drained_tile(library, monkeypatch, capsys):
     ]
     assert re.search(
         rf"^\[seg-timing\] drain split: fetch \d+\.\ds host \d+\.\ds over {n_tiles} row tiles "
-        r"\(0 dense-fallback groups\)$",
+        rf"\(0 dense-fallback groups\); {len(hits)} device sims, 0 overflowed slabs$",
         out,
         re.M,
     )

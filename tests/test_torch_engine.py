@@ -16,11 +16,13 @@ import pytest
 import torch
 
 from hydrus_video_deduplicator_tpu.parallel.engine import TpuSearchEngine
+from hydrus_video_deduplicator_tpu_torch import scene_library
 from hydrus_video_deduplicator_tpu_torch.ops import pair_verify
 from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
 from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
 from hydrus_video_deduplicator_tpu_torch.parallel import engine as eng
 from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
+from hydrus_video_deduplicator_tpu_torch.utils import profiling
 
 from .unit_tests.test_pruned_search import _flip, _mixed_corpus, _scene_video
 
@@ -383,6 +385,117 @@ def test_drain_dense_clump_and_progress(rng):
     )
     assert got == want and len(got) >= 1600
     assert events and events[-1][0] == events[-1][1]
+
+
+@pytest.fixture(scope="module")
+def hit_list_corpora():
+    """Three libraries of segment-route videos, each with the JAX segment
+    route's all-pairs list at 75 (sorted): uniform 8-frame clips with
+    adjacent and far plants; scene videos of 1-512 frames with re-encoded
+    and half-clip plants and empty hashes; a clump of 40 identical
+    videos (1,600 hits in one row block) among short random ones."""
+    rng = np.random.default_rng(99)
+    clump = [rng.integers(0, 256, (2, 32), dtype=np.uint8).tobytes()] * 40
+    clump += [
+        rng.integers(0, 256, (int(c), 32), dtype=np.uint8).tobytes()
+        for c in rng.integers(1, 9, 300)
+    ]
+    libraries = {
+        "clips": scene_library.build_sweep_corpus(1200, seed=3, n_plant=40, n_far=20)[0],
+        "scenes": scene_library.build_corpus(240, seed=5, median=48.0)[0],
+        "clump": clump,
+    }
+    jax_engine = TpuSearchEngine(force_segments=True)
+    return {
+        name: (blobs, sorted(jax_engine.find_pairs(blobs, blobs, 75)))
+        for name, blobs in libraries.items()
+    }
+
+
+#: the recorder's counts of the hit lists' drain and of the host scoring
+HIT_COUNTS = ("seg.tiles", "seg.device_sims", "seg.sims_overflow", "seg.host_hits")
+
+
+def _counted_search(blobs, layout) -> tuple[list, dict]:
+    """find_pairs over ``blobs`` at 75, whole or (``triangle``) in three
+    row chunks sharing one col_state, each up to its own end (col_limit),
+    as stage 4 runs it; with the recorder's HIT_COUNTS summed over the
+    calls."""
+    profiling.enable(True)
+    profiling.clear()
+    try:
+        engine = _port()
+        if layout == "triangle":
+            n = len(blobs)
+            cuts = [0, n // 3, 2 * n // 3, n]
+            state: dict = {}
+            got = []
+            for r0, r1 in zip(cuts, cuts[1:]):
+                got += [
+                    (i + r0, j, s)
+                    for i, j, s in engine.find_pairs(
+                        blobs[r0:r1], blobs, 75, col_state=state, col_limit=r1
+                    )
+                ]
+        else:
+            got = engine.find_pairs(blobs, blobs, 75)
+        records = profiling.records()
+    finally:
+        profiling.enable(False)
+        profiling.clear()
+    counts = {name: sum(r.counts.get(name, 0) for r in records) for name in HIT_COUNTS}
+    return got, counts
+
+
+@pytest.mark.parametrize("layout", ["whole", "triangle", "one block"])
+@pytest.mark.parametrize("library", ["clips", "scenes", "clump"])
+def test_hit_lists_give_the_parents_list_in_order(hit_list_corpora, monkeypatch, library, layout):
+    """The unpruned segment route with kernel 3's hit lists returns,
+    element for element and in order, what it returns with every list of
+    capacity 0 (each slab with a hit overflows: its mask decoded, its hits
+    scored by matchHashBytes) and with lists one record short of the
+    fullest slab's hits (that slab overflows, the others do not); sorted,
+    it is the JAX segment route's list. The recorder counts every hit in
+    seg.device_sims and none in seg.host_hits, the reverse with every list
+    overflowing, and each forced overflow in seg.sims_overflow."""
+    blobs, brute = hit_list_corpora[library]
+    if layout == "one block":
+        monkeypatch.setattr(GpuSearchEngine, "_row_blocks_per_tile", lambda self, n, s: 1)
+    search = "triangle" if layout == "triangle" else "whole"
+    found: list[int] = []  # each slab's hit count
+    real_drain = GpuSearchEngine._drain
+
+    def drain(self, slabs, *args):
+        found.extend(int(seg.hit_count(hits)) for *_, hits in slabs)
+        return real_drain(self, slabs, *args)
+
+    monkeypatch.setattr(GpuSearchEngine, "_drain", drain)
+    listed, counts = _counted_search(blobs, search)
+    fullest = max(found)
+    n_fullest = found.count(fullest)
+    monkeypatch.setattr(GpuSearchEngine, "_hit_capacity", lambda self, rows: fullest - 1)
+    tight, some = _counted_search(blobs, search)
+    monkeypatch.setattr(GpuSearchEngine, "_hit_capacity", lambda self, rows: 0)
+    scored, forced = _counted_search(blobs, search)
+
+    assert listed == scored and tight == scored
+    want = brute
+    if search == "triangle":
+        n = len(blobs)
+        ends = np.asarray([n // 3, 2 * n // 3, n])
+        want = [h for h in brute if h[1] < ends[np.searchsorted(ends, h[0], side="right")]]
+    assert sorted(listed) == want and len(want) > len(blobs) // 2
+    assert counts == {
+        "seg.tiles": counts["seg.tiles"], "seg.device_sims": len(listed),
+        "seg.sims_overflow": 0, "seg.host_hits": 0,
+    }
+    assert forced == {
+        "seg.tiles": counts["seg.tiles"], "seg.device_sims": 0,
+        "seg.sims_overflow": counts["seg.tiles"], "seg.host_hits": len(listed),
+    }
+    assert some["seg.sims_overflow"] == n_fullest and some["seg.host_hits"] > 0
+    if layout == "one block":  # listed and scored slabs in one list
+        assert counts["seg.tiles"] > 1 and some["seg.host_hits"] < len(listed)
 
 
 def test_engine_keeps_tensors_on_its_device(corpus):

@@ -187,6 +187,50 @@ def test_mask_bits_agree_with_match_hash_bytes(inputs, min_sim):
     assert len({(i, j) for i, j in want if i != j}) >= 10
 
 
+def _records(hits: torch.Tensor) -> tuple[int, np.ndarray]:
+    """A hit list's count and its records (those written), sorted by row
+    slot then column slot."""
+    n = int(seg.hit_count(hits))
+    rec = hits[1 : 1 + min(n, hits.shape[0] - 1)].cpu().numpy()
+    return n, rec[np.lexsort((rec[:, 1], rec[:, 0]))]
+
+
+def _assert_hit_list(hits: torch.Tensor, sims: np.ndarray, min_sim: int) -> None:
+    """The hit list holds exactly the positions and values of sims >= min_sim."""
+    n, rec = _records(hits)
+    want = np.argwhere(sims >= min_sim)  # row-major: sorted as _records sorts
+    assert n == len(want) > 0
+    assert np.array_equal(rec[:, :2], want)
+    assert np.array_equal(rec[:, 2], sims[want[:, 0], want[:, 1]])
+
+
+@pytest.mark.parametrize("min_sim", [1, 26, 75])
+def test_plain_hit_list_is_the_thresholded_sims(inputs, plain_sims, min_sim):
+    """The plain mask mode's hit list: every slot pair at or above min_sim
+    once, with its similarity, the invalid step's none; the mask as
+    without a list."""
+    args = _torch_args(inputs, CPU)
+    hits = seg.hit_list(plain_sims.size, CPU)
+    mask = seg.similarity_segments(*args, min_sim, hits)
+    assert torch.equal(mask, seg.similarity_mask_plain(*args, min_sim))
+    _assert_hit_list(hits, plain_sims, min_sim)
+
+
+def test_plain_hit_list_counts_past_its_capacity(inputs, plain_sims):
+    """A list shorter than the hits: the count is every hit, the records
+    written fill the capacity with distinct hits, nothing lies past it."""
+    args = _torch_args(inputs, CPU)
+    want = {tuple(p) for p in np.argwhere(plain_sims >= 1).tolist()}
+    store = torch.full((len(want) + 1, 3), -7, dtype=torch.int32)
+    cap = len(want) // 3
+    seg.similarity_segments(*args, 1, store[: cap + 1])
+    n, rec = _records(store[: cap + 1])
+    assert n == len(want) and len(rec) == cap
+    assert len({tuple(r) for r in rec[:, :2].tolist()}) == cap
+    assert {tuple(r) for r in rec[:, :2].tolist()} <= want
+    assert (store[cap + 1 :] == -7).all()
+
+
 @pytest.mark.parametrize("tol", [31, 79])
 def test_plain_counts_match_xla_twin(inputs, tol):
     _, ri, _, _, ci, _, valid = inputs["np"]
@@ -244,6 +288,12 @@ def test_wrappers_reject_what_the_kernel_does_not_take(inputs):
         seg.similarity_segments(a, sa, ca, b, sb, cb, v[:2])
     with pytest.raises(ValueError, match="b_words"):
         seg.exists_mask_kernel(a, sa, b[: seg.STEP_FRAMES * 2 + 8], sb, 79)
+    with pytest.raises(ValueError, match="mask mode"):
+        seg.similarity_segments(a, sa, ca, b, sb, cb, v, None, seg.hit_list(4, CPU))
+    with pytest.raises(TypeError):
+        seg.similarity_segments(a, sa, ca, b, sb, cb, v, 75, seg.hit_list(4, CPU).long())
+    with pytest.raises(ValueError, match="capacity"):
+        seg.similarity_segments(a, sa, ca, b, sb, cb, v, 75, torch.zeros(5, 4, dtype=torch.int32))
 
 
 @pytest.fixture()
@@ -289,6 +339,23 @@ def test_kernel_matches_plain_on_cuda(inputs, cuda_device, mode, monkeypatch):
     torch.cuda.synchronize()
     assert seg.LAUNCHES[wrapper] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_sim", [1, 75])
+def test_kernel_hit_list_is_the_thresholded_sims_on_cuda(inputs, cuda_device, min_sim):
+    """Kernel 3's hit list in mask mode, sorted: the positions and values
+    of its own sims mode at or above min_sim (the plain version's too),
+    and its mask bit-equal to the mask without a list."""
+    args = _torch_args(inputs, cuda_device)
+    sims = seg.similarity_segments(*args)
+    hits = seg.hit_list(sims.numel(), cuda_device)
+    mask = seg.similarity_segments(*args, min_sim, hits)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, seg.similarity_segments(*args, min_sim))
+    sims = sims.cpu().numpy()
+    assert np.array_equal(sims, seg.similarity_segments_plain(*_torch_args(inputs, CPU)).numpy())
+    _assert_hit_list(hits, sims, min_sim)
 
 
 # ---------------------------------------------------------------------------
@@ -492,6 +559,57 @@ def dense_tile():
     cp, ci, _, _ = seg.stack_blocks(cblocks, seg.N_SPLIT, seg.CHUNK_FRAMES, seg.CHUNK_SLOTS)
     assert (ri >= 0).all() and (ci >= 0).all()
     return rp, ri, cp, ci
+
+
+def _dense_args(dense_tile, device):
+    """Kernel 3's arguments on the dense tile: 256 row and 256 column
+    videos of 8 frames."""
+    rp, ri, cp, ci = dense_tile
+    eights = torch.full((seg.ROW_SLOTS,), 8, dtype=torch.int32, device=device)
+    return (
+        ops_sim.to_words(rp, device), torch.from_numpy(ri).to(device), eights,
+        ops_sim.to_words(cp, device), torch.from_numpy(ci).to(device), eights.clone(),
+        torch.ones(1, dtype=torch.int32, device=device),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_sim", [1, 75])
+def test_kernel_hit_list_at_the_edge_cases_and_on_a_dense_tile_on_cuda(
+    edge_case, dense_tile, cuda_device, min_sim
+):
+    """The hit list against the sims mode at the edge cases (padding
+    quarters beside a real all-zero frame, a tile whose only match is its
+    last element, a slot straddling two row tiles) and on the dense
+    self-diagonal tile, where every one of the 65,536 slot pairs is a hit
+    and every warp of the epilogue reserves its 32 words' hits at once."""
+    for args in (_torch_args(edge_case[0], cuda_device), _dense_args(dense_tile, cuda_device)):
+        sims = seg.similarity_segments(*args)
+        hits = seg.hit_list(sims.numel(), cuda_device)
+        seg.similarity_segments(*args, min_sim, hits)
+        torch.cuda.synchronize()
+        _assert_hit_list(hits, sims.cpu().numpy(), min_sim)
+    assert int(seg.hit_count(hits)) == seg.ROW_SLOTS * seg.STEP_SLOTS
+
+
+@pytest.mark.cuda
+def test_kernel_hit_list_counts_past_its_capacity_on_cuda(dense_tile, cuda_device):
+    """A list shorter than the dense tile's 65,536 hits: the count is exact,
+    the capacity is filled with distinct hits of 100, and nothing is
+    written past it; the mask is whole."""
+    args = _dense_args(dense_tile, cuda_device)
+    n_hits = seg.ROW_SLOTS * seg.STEP_SLOTS
+    store = torch.full((n_hits + 1, 3), -7, dtype=torch.int32, device=cuda_device)
+    for cap in (0, 1, 1000, n_hits - 1):
+        store.fill_(-7)
+        mask = seg.similarity_segments(*args, 75, store[: cap + 1])
+        torch.cuda.synchronize()
+        assert (mask == -1).all()
+        n, rec = _records(store[: cap + 1])
+        assert n == n_hits and len(rec) == cap
+        assert len({tuple(r) for r in rec[:, :2].tolist()}) == cap and (rec[:, 2] == 100).all()
+        assert ((rec[:, :2] >= 0) & (rec[:, :2] < seg.ROW_SLOTS)).all()
+        assert (store[cap + 1 :] == -7).all()
 
 
 @pytest.mark.cuda

@@ -141,9 +141,14 @@ def test_a_search_records_its_tree(library, recorder, monkeypatch, search):
             assert up.start <= r.start <= r.end <= up.end, r.name
 
 
-def test_the_counts_equal_the_work(library, recorder, monkeypatch):
-    """seg.tiles counts every drained tile on the route's span, and
-    seg.host_hits every hit the similarities scored, on theirs."""
+@pytest.mark.parametrize("overflow", [False, True])
+def test_the_counts_equal_the_work(library, recorder, monkeypatch, overflow):
+    """seg.tiles counts every drained tile on the route's span, seg.device_sims
+    every hit whose similarity came from kernel 3's hit lists and
+    seg.sims_overflow every slab that fell back to its mask, on the route's
+    span too, and seg.host_hits every hit the similarities scored, on
+    theirs: every hit on the kernel's side, or, with every hit list of
+    capacity 0, every hit on the host's and every slab overflowed."""
     blobs, _ = library
     drained, scored = [], []
     real_drain, real_sims = GpuSearchEngine._drain, engine._with_similarities
@@ -152,17 +157,23 @@ def test_the_counts_equal_the_work(library, recorder, monkeypatch):
     )
     monkeypatch.setattr(
         engine, "_with_similarities",
-        lambda hits, *a: scored.append(len(hits)) or real_sims(hits, *a),
+        lambda hits, *a: scored.append((len(hits), sum(b - a0 for a0, b in a[-1])))
+        or real_sims(hits, *a),
     )
+    if overflow:
+        monkeypatch.setattr(GpuSearchEngine, "_hit_capacity", lambda self, rows: 0)
     _search("find_pairs", blobs, monkeypatch)
     records = recorder.records()
     counted = {
         name: [(r.name, r.counts[name]) for r in records if name in r.counts]
-        for name in ("seg.tiles", "seg.host_hits")
+        for name in ("seg.tiles", "seg.host_hits", "seg.device_sims", "seg.sims_overflow")
     }
     assert len(drained) > 1 and counted["seg.tiles"] == [("seg.route", len(drained))]
-    assert scored[0] > N_VIDEOS
-    assert counted["seg.host_hits"] == [("seg.similarities", scored[0])]
+    ((n_hits, n_host),) = scored
+    assert n_hits > N_VIDEOS and n_host == (n_hits if overflow else 0)
+    assert counted["seg.host_hits"] == [("seg.similarities", n_host)]
+    assert counted["seg.device_sims"] == [("seg.route", n_hits - n_host)]
+    assert counted["seg.sims_overflow"] == [("seg.route", len(drained) if overflow else 0)]
 
 
 def test_spans_are_profiler_annotations_on_the_main_thread_only(
