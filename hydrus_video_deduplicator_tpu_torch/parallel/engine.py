@@ -594,6 +594,9 @@ class GpuSearchEngine:
                                 [b for _, b in iter_blob_items(all_phashes, sl)], radius_cap
                             )
                         )
+                    # stage A's work grows with the square of the leaders' share
+                    count("prune.col_frames", int(col_counts[seg_col_idx].sum()))
+                    count("prune.col_leaders", sum(map(len, col_reps)) // BYTES)
                     rep_cols = prune_state["rep_cols"] = list(zip(seg_col_idx.tolist(), col_reps))
                     prune_state["rep_cols_radius_cap"] = radius_cap
                     # the device staging and the lookup of the old reps are stale
