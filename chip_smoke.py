@@ -6,9 +6,9 @@ Phases (each raises on failure; nothing is caught):
 
 0. build: prints the card's name and power limit, the torch and CUDA
    versions, and the nvcc builds of csrc/exists_mask_sweep.cu,
-   csrc/pdq_filter.cu, csrc/similarity_segments.cu and
-   csrc/similarity_block.cu, started together (time and the compiler's
-   register/shared-memory report of each); it reads the SASS of the three
+   csrc/pair_verify.cu, csrc/pdq_filter.cu, csrc/similarity_segments.cu
+   and csrc/similarity_block.cu, started together (time and the compiler's
+   register/shared-memory report of each); it reads the SASS of the four
    Hamming libraries (all but the PDQ filter) with cuobjdump and fails
    unless each holds tensor-core MMA instructions (their frame pairs run
    on binary mma.sync: BMMA), printing the counts;
@@ -25,8 +25,9 @@ Phases (each raises on failure; nothing is caught):
    fresh database, stage 2, maintenance and deduplicate(skip_hashing=True)
    with the port's HydrusVideoDeduplicator against a fake Hydrus server:
    the marked set must equal the planted set, the search cache must be
-   fully marked, a re-run must mark 0, and the sweep kernel must have
-   launched, and no other kernel;
+   fully marked, a re-run must mark 0, and the sweep kernel and stage B's
+   kernel (csrc/pair_verify.cu) must have launched, and no other kernel
+   (so in every pruned phase below);
 2b. the delta, on phase 2's database right after its re-run (the
    database phases 11 and 12 copy was saved before phase 2's search, so
    they do not see it): N_DELTA = 10,000 new videos of
@@ -38,14 +39,14 @@ Phases (each raises on failure; nothing is caught):
    phase 2's plants and the delta's with no pair of two searched videos
    POSTed, the returned count must be the reference's rule, (500 + 2 x
    100) // 2 = 350, the search cache must be fully marked, a re-run must
-   mark 0, and the sweep must have launched and no other kernel; its
-   stage-2 and stage-4 seconds print beside phase 2's;
+   mark 0, and the sweep and stage B's kernel must have launched and no
+   other kernel; its stage-2 and stage-4 seconds print beside phase 2's;
 2c. the mean-200 profile: N_MEAN200 = 10,000 videos of the seed-7 scene
    library at the median 160 (about 2.07M frames; the JAX package's
    artifacts/library_1m_fresh_mean200_r05.log at a hundredth of its size)
    through stage 2 and stage 4 as phase 2, with search_prefilter="auto":
-   exact, a re-run marking 0, the sweep launched and no other kernel; its
-   stage-2 and stage-4 seconds print beside phase 2's;
+   exact, a re-run marking 0, the sweep and stage B's kernel launched and
+   no other kernel; its stage-2 and stage-4 seconds print beside phase 2's;
 2d. stage 4's timing lines: stage 4 once more from the database phase 2
    saved after stage 2, with HVD_DEBUG_TIMING=1 for this run only (phase
    2 runs without it) and stdout and stderr teed: held as phase 2, with as
@@ -57,6 +58,13 @@ Phases (each raises on failure; nothing is caught):
    (the chunks' fetch, search with its prune laps and the complements,
    mark and cache-update, and what lies outside the chunks) with the card,
    and one with stage A's segment laps and stage B's verify split;
+2e. stage B's kernel alone (csrc/pair_verify.cu) on the device pairs of
+   one find_pairs_pruned call of the scene1m-pruned cell's shape: row
+   chunk 4 (131,072 rows) of the seed-7 mean-71 library of 1,000,000
+   videos against all of it; the kernel's similarities must equal its
+   plain version's on the card (the float16 bmm chain, _verify_plain)
+   exactly; it prints the call's pairs and frame pairs, the kernel's
+   CUDA-event ms beside its bound, the upload's ms and the host parts;
 3. the CLI, ``python -m hydrus_video_deduplicator_tpu_torch`` (run in this
    process, so its kernel launches are counted), on the test corpus: with
    --hash-backend native --search-backend gpu --search-prefilter reps,
@@ -192,7 +200,8 @@ Phases (each raises on failure; nothing is caught):
    must fetch no file, the marked set must equal the planted set, the
    search cache must be fully marked, the second run must mark 0, and the
    sweep library must have been built during the run, under the
-   checkout's name, inside the installed copy, and launched there (each
+   checkout's name, inside the installed copy, and launched there, with
+   stage B's kernel and no other search kernel (each
    run's launch counts come from the run's own interpreter at its exit,
    through a sitecustomize in a directory of its own on PYTHONPATH). It
    prints the runs' stage-4 and whole-run seconds beside phase 2's;
@@ -207,7 +216,8 @@ Phases (each raises on failure; nothing is caught):
 
 The last lines are the card (nvidia-smi), one JSON object describing each
 kernel, and {"ok": true, "device": {...}}. A kernel's "launches" is its
-count over the run of the path it serves: phases 2, 2b and 2c for the sweep, phase 5
+count over the run of the path it serves: phases 2, 2b and 2c for the sweep and
+for stage B's kernel (timed in phase 2e), phase 5
 for the PDQ filter, phases 7 and 7b for the similarity kernel and, read from
 phase 7's counters, for the counts mode (kernel 6) and the every-step sweep
 (kernel 2): these serve no path of the program, so theirs is 0; phase 6
@@ -333,18 +343,20 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_VIDEOS = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
 THRESHOLD = 75.0
-KERNELS = {  # wrapper name -> (kernel library, the TPU kernel it replaces)
+KERNELS = {  # wrapper name -> (kernel library, the JAX package's kernel it replaces)
     "exists_mask_sweep": ("exists_mask_sweep", "ops/similarity_segments.py:467"),
     "pdq_filter": ("pdq_filter", "ops/pdq_pallas.py:114"),
     "similarity_segments": ("similarity_segments", "ops/similarity_segments.py:107"),
     "exists_counts": ("similarity_segments", "ops/similarity_segments.py:230"),
     "exists_mask_kernel": ("exists_mask_sweep", "ops/similarity_segments.py:355"),
     "similarity_block": ("similarity_block", "ops/similarity_pallas.py:113"),
+    # stage B: the JAX package's is XLA's batched product, no Pallas kernel
+    "pair_verify": ("pair_verify", "ops/pair_verify.py:51"),
 }
 LIBRARIES = sorted({lib for lib, _ in KERNELS.values()})
 #: the libraries whose frame pairs run on the tensor cores, and the SASS
 #: opcodes of a tensor-core product
-MMA_LIBRARIES = ("exists_mask_sweep", "similarity_block", "similarity_segments")
+MMA_LIBRARIES = ("exists_mask_sweep", "pair_verify", "similarity_block", "similarity_segments")
 MMA_OPCODES = re.compile(r"\b(IGMMA|HGMMA|QGMMA|IMMA|HMMA|BMMA)\b")
 #: the int8 GEMM yardstick's output chunk (int32 entries)
 YARDSTICK_CHUNK_ENTRIES = 1 << 28
@@ -983,25 +995,33 @@ def log_search_timers(phase, timers: StageTimers, kernels: set, total: float | N
         )
 
 
-def search_launches() -> dict:
-    """Every search kernel's launch count."""
+def search_counters() -> tuple:
+    """The LAUNCHES counters of the search kernels' modules."""
+    from hydrus_video_deduplicator_tpu_torch.ops import pair_verify as pv
     from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
     from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
 
-    return {name: n for counter in (seg.LAUNCHES, sb.LAUNCHES) for name, n in counter.items()}
+    return seg.LAUNCHES, sb.LAUNCHES, pv.LAUNCHES
+
+
+def search_launches() -> dict:
+    """Every search kernel's launch count."""
+    return {name: n for counter in search_counters() for name, n in counter.items()}
 
 
 def zero_search_launches() -> None:
-    from hydrus_video_deduplicator_tpu_torch.ops import similarity_block as sb
-    from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
-
-    for counter in (seg.LAUNCHES, sb.LAUNCHES):
+    for counter in search_counters():
         for name in counter:
             counter[name] = 0
 
 
 def check_launches(phase, launches: dict, kernels: set) -> None:
-    """Every kernel of ``kernels`` launched, and no other search kernel."""
+    """Every kernel of ``kernels`` launched, and no other search kernel. A
+    pruned search (stage A's sweep among ``kernels``) also launches stage
+    B's kernel: every library of these phases has near-copy plants of at
+    most 512 frames, pairs of two different blobs that stage B scores."""
+    if "exists_mask_sweep" in kernels:
+        kernels = kernels | {"pair_verify"}
     idle = sorted(name for name in kernels if launches[name] == 0)
     if idle:
         raise AssertionError(f"phase {phase}: {idle} never launched")
@@ -1358,7 +1378,7 @@ def phase2d_timing(lib, db2: str, phase2_sweeps: int) -> None:
         raise AssertionError("phase 2d: the sweep launched otherwise than in phase 2")
 
 
-def phase2b_delta(lib, deduper, db, server, before: dict) -> int:
+def phase2b_delta(lib, deduper, db, server, before: dict) -> dict:
     """Phase 2b, the delta: N_DELTA new videos of scene_library.build_delta
     added to the library that phase 2 has just searched (``deduper``,
     ``db`` and ``server`` are phase 2's, after its re-run), listed by the
@@ -1370,9 +1390,10 @@ def phase2b_delta(lib, deduper, db, server, before: dict) -> int:
     videos, none twice); the returned count must follow the reference's
     rule, a hit against a searched video one event and a hit between two
     new videos two, halved; the search cache must be fully marked, a
-    re-run must mark 0, and the sweep must have launched and no other
-    search kernel. Prints the run's stage-2 and stage-4 seconds beside
-    phase 2's (``before``). Returns the sweep's launches."""
+    re-run must mark 0, and the sweep and stage B's kernel must have
+    launched and no other search kernel. Prints the run's stage-2 and
+    stage-4 seconds beside phase 2's (``before``). Returns the search
+    kernels' launches."""
     from hydrus_video_deduplicator_tpu_torch import scene_library as sl
     from hydrus_video_deduplicator_tpu_torch.db import vptree
 
@@ -1457,7 +1478,7 @@ def phase2b_delta(lib, deduper, db, server, before: dict) -> int:
         f"{before['stage 4']:.3f}), deduplicate() {t_run:.3f}, re-run {t_rerun:.3f}"
     )
     log_search_timers("2b", timers, kernels)
-    return launches["exists_mask_sweep"]
+    return launches
 
 
 def delta_rehearsal(n_corpus: int, n_new: int) -> None:
@@ -1597,15 +1618,15 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
             server.stop()
 
 
-def phase2c_mean200() -> int:
+def phase2c_mean200() -> dict:
     """Phase 2c, the mean-200 profile: the seed-7 scene library of N_MEAN200
     videos at the median MEAN200_MEDIAN (the JAX package's
     artifacts/library_1m_fresh_mean200_r05.log at a hundredth of its size)
     through stage4_orchestrator with search_prefilter="auto", held as phase
     2 is: the planted set, the cache fully marked, a re-run marking 0, the
-    sweep launched and no other search kernel. Prints its stage-2 and
-    stage-4 seconds beside phase 2's and its whole time. Returns the
-    sweep's launches."""
+    sweep and stage B's kernel launched and no other search kernel. Prints
+    its stage-2 and stage-4 seconds beside phase 2's and its whole time.
+    Returns the search kernels' launches."""
     t0 = time.perf_counter()
     lib = build_library(N_MEAN200, median=MEAN200_MEDIAN)
     launches = stage4_orchestrator("2c", *lib, {"exists_mask_sweep"}, search_prefilter="auto")
@@ -1615,7 +1636,7 @@ def phase2c_mean200() -> int:
         f"{STAGE2_S[(2, 'auto')]:.3f}), stage 4 search+mark {STAGE4_S[('2c', 'auto')]:.3f} "
         f"(phase 2: {STAGE4_S[(2, 'auto')]:.3f}); phase 2c in all {time.perf_counter() - t0:.3f}"
     )
-    return launches["exists_mask_sweep"]
+    return launches
 
 
 def check_free_space(
@@ -3114,7 +3135,8 @@ def _report():
     port = "hydrus_video_deduplicator_tpu_torch"
     mods = dict(sys.modules)
     launches = {}
-    for name in ("ops.similarity_segments", "ops.similarity_block", "ops.pdq_filter"):
+    for name in ("ops.similarity_segments", "ops.similarity_block", "ops.pdq_filter",
+                 "ops.pair_verify"):
         launches.update(getattr(mods.get(port + "." + name), "LAUNCHES", {}))
     build = mods.get(port + ".ops._build")
     report = {
@@ -3314,7 +3336,7 @@ def phase12_installed(lib2, db2: str) -> None:
         if not built or first["build_dir"] != os.path.join(installed, "csrc", "build"):
             raise AssertionError("phase 12: the sweep library was not built in the installed copy")
         launched = {k: n for k, n in first["launches"].items() if n}
-        if set(launched) != {"exists_mask_sweep"}:
+        if set(launched) != {"exists_mask_sweep", "pair_verify"}:
             raise AssertionError(f"phase 12: kernel launches {first['launches']}")
         log(f"phase 12 seconds: installed CLI run 1 {first['s']:.3f} (stage 4 "
             f"{first['stage4_s']:.3f}, stage 1 listing to stage 4 {first['list_s']:.3f}), run 2 "
@@ -3377,6 +3399,82 @@ def phase13_bench(sweep_timing: dict, pdq_timing: dict) -> None:
             f"card: {line['device']['nvidia_smi']}")
 
 
+def pair_verify_timing(n: int = 1_000_000, chunk: int = 131_072, at: int = 4, iters: int = 20):
+    """Phase 2e, stage B's kernel alone (csrc/pair_verify.cu) on one
+    find_pairs_pruned call's device pairs: row chunk ``at`` of the seed-7
+    mean-71 scene library of ``n`` videos, as the scene1m-pruned cell's
+    step calls it.
+
+    Logs the call's pairs and frame pairs, the kernel's CUDA-event time a
+    launch (``iters`` launches after a warm-up) beside its bound (the
+    uploaded bytes at 3.35 TB/s, the real frame pairs at 2.02e13/s), the
+    host-to-device copy of its input, and the host time of the plain
+    version on the card (``_verify_plain``: the float16 bmm chain that the
+    kernel replaced, a bucket's chunks drained together), and requires the
+    kernel's similarities to equal it. Returns the numbers as a dict, with
+    the keys of the ``kernels`` line (``ms``, ``plain_ms``, ``bound_ms``,
+    ``bound_by``, ``max_abs_err``)."""
+    import numpy as np
+    import torch
+
+    from hydrus_video_deduplicator_tpu_torch.ops import pair_verify as pv
+    from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
+    from hydrus_video_deduplicator_tpu_torch.utils import device_timer
+
+    dev = torch.device("cuda")
+    log(f"card: {card_line()}")
+    blobs, _pairs, _n_empty, min_sim = build_library(n)
+    calls = []
+    real = pv.verify_pairs
+    pv.verify_pairs = lambda pairs, rb, cb, *a, **k: calls.append((pairs, rb, cb)) or real(
+        pairs, rb, cb, *a, **k
+    )
+    try:
+        i0 = at * chunk
+        GpuSearchEngine(device=dev).find_pairs_pruned(
+            blobs[i0 : i0 + chunk], blobs, min_sim, col_state={},
+            col_limit=min(i0 + chunk, n), rows_at=i0,
+        )
+    finally:
+        pv.verify_pairs = real
+    pairs, row_blob, col_blob = calls[-1]
+    t0 = time.perf_counter()
+    split = pv._split(pairs, row_blob, col_blob)
+    t_split = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host, order = pv._pack(split)
+    t_pack = time.perf_counter() - t0
+    n_pairs = len(order)
+    frame_pairs = int((split.table[:, 1].astype(np.int64) * split.table[:, 3]).sum())
+    nbytes = host.numel() * 4 + n_pairs * 4
+    buf = host.to(dev)
+    torch.cuda.synchronize()
+    copy_s = device_timer(lambda i: buf.copy_(host, non_blocking=True), iters=iters)
+    kernel_s = device_timer(lambda i: pv._launch(buf, n_pairs), iters=iters)
+    got = np.empty(n_pairs, dtype=np.int32)
+    got[order] = pv._launch(buf, n_pairs).cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = pv._verify_plain(split, dev)
+    plain_s = time.perf_counter() - t0
+    if not n_pairs or not np.array_equal(got, plain):
+        raise AssertionError(
+            f"phase 2e: {int((got != plain).sum())} of {n_pairs} similarities differ"
+        )
+    bytes_s, ops_s = nbytes / 3.35e12, frame_pairs / 2.02e13
+    bound_s = max(bytes_s, ops_s)
+    out = {
+        "candidates": len(pairs), "device_pairs": n_pairs, "frame_pairs": frame_pairs,
+        "bytes": nbytes, "ms": kernel_s * 1e3, "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "ops",
+        "roofline_pct": 100 * bound_s / kernel_s, "copy_ms": copy_s * 1e3,
+        "split_ms": t_split * 1e3, "pack_ms": t_pack * 1e3, "plain_ms": plain_s * 1e3,
+        "max_abs_err": int(np.abs(got - plain).max()),
+    }
+    log(f"phase 2e: pair_verify at row chunk {at}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3393,12 +3491,15 @@ def main() -> int:
     lib2 = build_library(N_VIDEOS)
     timing = phase1_kernel_vs_plain(lib2[0], dev)
     delta_launches = []  # phase 2b runs on phase 2's database after its re-run
-    phase2_sweeps = stage4_orchestrator(
+    phase2_launches = stage4_orchestrator(
         2, *lib2, {"exists_mask_sweep"}, save_db=db2,
         after=lambda *state: delta_launches.append(phase2b_delta(lib2, *state)),
-    )["exists_mask_sweep"]
-    sweep_launches = phase2_sweeps + delta_launches[0] + phase2c_mean200()
-    phase2d_timing(lib2, db2, phase2_sweeps)
+    )
+    main_path = (phase2_launches, delta_launches[0], phase2c_mean200())
+    sweep_launches = sum(run["exists_mask_sweep"] for run in main_path)
+    verify_launches = sum(run["pair_verify"] for run in main_path)
+    phase2d_timing(lib2, db2, phase2_launches["exists_mask_sweep"])
+    verify_timing = pair_verify_timing()
     phase3_cli()
     pdq_timing = phase4_pdq_kernel_vs_plain(dev)
     pdq_launches = phase5_stage1()
@@ -3456,6 +3557,7 @@ def main() -> int:
             seg_launches["exists_mask_kernel"], seg_timing, "every-step sweep 79"
         ),
         "similarity_block": entry(block_launches, block_timing, "1024 x 64", *block_timing),
+        "pair_verify": entry(verify_launches, {"2e": verify_timing}, "2e"),
     }
     print(card_line())
     print(json.dumps({

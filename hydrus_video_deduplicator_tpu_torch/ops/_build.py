@@ -43,6 +43,10 @@ KERNELS: dict[str, tuple[list[str], dict[str, list]]] = {
         [],
         {"hvd_exists_mask_sweep": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _ptr]},
     ),
+    "pair_verify": (
+        [],
+        {"hvd_pair_verify": [_ptr, _ptr, _ptr, _int, _ptr]},
+    ),
     "pdq_filter": (
         ["--fmad=false"],
         {"hvd_pdq_filter": [_ptr, _ptr, _ptr, _int, _ptr]},

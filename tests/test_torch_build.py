@@ -110,7 +110,8 @@ def fake_toolkit(tmp_path, monkeypatch):
 def test_every_source_has_a_library_and_every_library_a_source():
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert sources == set(_build.KERNELS) == {
-        "exists_mask_sweep", "pdq_filter", "similarity_block", "similarity_segments"
+        "exists_mask_sweep", "pair_verify", "pdq_filter", "similarity_block",
+        "similarity_segments",
     }
 
 
@@ -138,7 +139,7 @@ def test_a_failed_build_raises_with_the_compiler_output(fake_toolkit):
 
 
 #: the kernels whose frame pairs run on the shared tensor-core header
-MMA_KERNELS = ("exists_mask_sweep", "similarity_block", "similarity_segments")
+MMA_KERNELS = ("exists_mask_sweep", "pair_verify", "similarity_block", "similarity_segments")
 
 
 def test_sources_follow_quoted_includes():
