@@ -1503,6 +1503,7 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
     from hydrus_video_deduplicator_tpu_torch import dedup
     from hydrus_video_deduplicator_tpu_torch.client import HVDClient
     from hydrus_video_deduplicator_tpu_torch.db import DedupeDB, vptree
+    from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
     from tests.fake_hydrus import DEFAULT_ACCESS_KEY, FakeHydrus
 
     if not torch.cuda.is_available():
@@ -1585,7 +1586,7 @@ def delta_rehearsal(n_corpus: int, n_new: int) -> None:
             kernels = {"similarity_segments"}
             timers = search_timers(kernels)
             timers.wrap(deduper, "process_phashed_file_queue", "stage 2")
-            timers.wrap(deduper, "_pick_search_prefilter", "prefilter choice (clustering)")
+            timers.wrap(GpuSearchEngine, "pick_prefilter", "prefilter choice (clustering)")
             timers.wrap(deduper, "find_potential_duplicates", "stage 4 search+mark")
             zero_search_launches()
             t0 = time.perf_counter()

@@ -48,11 +48,9 @@ from .db import DedupeDB, vptree
 from .db.blobs import DbBlobColumn, fetch_blobs
 from .hashing import compute_phash
 from .models.vpdq import GpuVideoHasher
-from .ops import reps as reps_mod
-from .ops import similarity_segments as seg
 from .page_logger import HydrusPageLogger
 from .parallel import mesh as mesh_mod
-from .parallel.engine import GpuSearchEngine, blob_frame_counts, iter_blob_items
+from .parallel.engine import GpuSearchEngine
 from .utils.profiling import count, debug_timing, span
 
 if TYPE_CHECKING:
@@ -790,49 +788,6 @@ class HydrusVideoDeduplicator:
         has_device = self.device is not None or torch.cuda.is_available()
         return "gpu" if has_device and num_files >= self.GPU_ENGINE_MIN_BATCH else "tree"
 
-    #: auto prefilter: prune when the scene representatives are at most
-    #: this fraction of the corpus frames — sweep cost scales with the
-    #: SQUARE of the fraction, so 0.7 already means ~2x less device work,
-    #: comfortably above the filter's own overhead (linear clustering +
-    #: candidate verification)
-    PREFILTER_MAX_REP_FRACTION = 0.7
-
-    def _pick_search_prefilter(self, all_phashes, col_state: dict) -> bool:
-        """Decide once per sweep whether stage 4 uses the exact
-        scene-representative prune, and when it does, seed col_state with
-        the column-side reps. "auto" prunes only if the reps are at most
-        PREFILTER_MAX_REP_FRACTION of the frames."""
-        if self.search_prefilter == "none":
-            return False
-        counts = blob_frame_counts(all_phashes)
-        eligible_idx = np.nonzero((counts > 0) & (counts <= seg.SEG_MAX_FRAMES))[0]
-        # cluster in slabs so only one slab of blobs is resident at a time
-        rep_blobs: list[bytes] = []
-        slab = 1 << 18
-        for s0 in range(0, len(eligible_idx), slab):
-            sl = eligible_idx[s0 : s0 + slab]
-            rep_blobs.extend(
-                reps_mod.extract_reps([b for _, b in iter_blob_items(all_phashes, sl)])
-            )
-        rep_cols = list(zip(eligible_idx.tolist(), rep_blobs))
-        if self.search_prefilter != "reps":  # auto
-            total_frames = int(counts[eligible_idx].sum())
-            total_reps = sum(len(rb) // 32 for rb in rep_blobs)
-            if total_reps > self.PREFILTER_MAX_REP_FRACTION * total_frames:
-                log.info(
-                    "prefilter auto: reps %d / frames %d — compression too weak, "
-                    "using the plain sweep",
-                    total_reps,
-                    total_frames,
-                )
-                return False
-        prune_state = col_state.setdefault("prune", {})
-        prune_state["rep_cols"] = rep_cols
-        # stamp the cap the seeded reps were clustered at, or the engine's
-        # cache-validity check discards them and re-clusters
-        prune_state["rep_cols_radius_cap"] = reps_mod.RADIUS_CAP
-        return True
-
     def find_potential_duplicates(self) -> int:
         search_threshold = vptree.fix_vpdq_similarity(self.threshold)
         assert search_threshold > 0 and isinstance(search_threshold, int)
@@ -1035,7 +990,7 @@ class HydrusVideoDeduplicator:
             post_pending()
             return True
 
-        use_prune = self._pick_search_prefilter(all_phashes, col_state)
+        use_prune = engine.pick_prefilter(all_phashes, col_state, self.search_prefilter)
         log.info(
             "stage-4 prefilter: %s", "scene-representative prune" if use_prune else "none"
         )

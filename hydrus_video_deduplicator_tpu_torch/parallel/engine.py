@@ -16,7 +16,8 @@ package's ``parallel/engine.py``).
    exact similarity.
 
 ``GpuSearchEngine.find_pairs`` is the unpruned search (stage 4 under
-``--search-prefilter none``, or when ``auto`` declines the prune). Pairs of
+``--search-prefilter none``, or when ``auto`` declines the prune in
+``GpuSearchEngine.pick_prefilter``, which clusters the columns). Pairs of
 videos of up to SEG_MAX_FRAMES frames take the segment route: the full
 column frames are staged on the device once per sweep, each row tile is
 one launch of the segment similarity kernel (``ops.similarity_segments``,
@@ -46,6 +47,7 @@ in the JAX package's formats, from those spans (``utils.profiling.Laps``).
 from __future__ import annotations
 
 import itertools
+import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -63,9 +65,13 @@ from ..utils.profiling import NULL_SPAN, Laps, count, span
 from ..vpdq import matchHashBytes
 from .mesh import Mesh, replicate, resolve_mesh, row_slabs
 
+log = logging.getLogger("hvd")
+
 #: videos longer than this many frames skip the bucketed device path and
 #: are compared exactly on the host (native matchHashBytes)
 MAX_BUCKET = sb.MAX_FRAMES
+#: columns clustered a call of extract_reps, so one slab's blobs are resident
+COL_REPS_SLAB = 1 << 18
 
 
 def _bucket_size(n_frames: int) -> int:
@@ -83,6 +89,12 @@ def iter_blob_items(src, indices):
     if hasattr(src, "iter_many"):
         return src.iter_many(indices)
     return ((int(i), src[int(i)]) for i in indices)
+
+
+def _seg_eligible(counts: np.ndarray) -> np.ndarray:
+    """Indices of the videos of 1..SEG_MAX_FRAMES frames: those the pruned
+    search clusters into scene leaders."""
+    return np.nonzero((counts >= 1) & (counts <= seg.SEG_MAX_FRAMES))[0]
 
 
 def blob_frame_counts(src) -> np.ndarray:
@@ -314,6 +326,12 @@ class GpuSearchEngine:
     #: HITS_SLACK: every video hits itself once, and near copies are few
     HITS_PER_ROW = 4
     HITS_SLACK = 1 << 16
+    #: ``auto`` prunes when the scene leaders are at most this fraction of
+    #: the eligible frames — sweep cost scales with the SQUARE of the
+    #: fraction, so 0.7 already means ~2x less device work, comfortably
+    #: above the filter's own overhead (linear clustering + candidate
+    #: verification)
+    PREFILTER_MAX_REP_FRACTION = 0.7
 
     def __init__(self, device: "str | torch.device | None" = None, mesh: Mesh | None = None):
         self.mesh = resolve_mesh(device, mesh)
@@ -564,45 +582,11 @@ class GpuSearchEngine:
         with span("find_pairs_pruned") as call:
             radius_cap = reps_mod.RADIUS_CAP if radius_cap is None else radius_cap
             state = col_state if col_state is not None else {}
-            prune_state = state.setdefault("prune", {})
-
+            rep_cols = self._cluster_columns(all_phashes, state, radius_cap)
+            laps("col reps", seconds=call.child_seconds("prune.col_reps"))
+            prune_state, col_counts = state["prune"], state["col_n_frames"]
             row_counts = blob_frame_counts(row_phashes)
-            col_counts = state.get("col_n_frames")
-            if col_counts is None:
-                col_counts = state["col_n_frames"] = blob_frame_counts(all_phashes)
-
-            seg_row_idx = np.nonzero(
-                (row_counts >= 1) & (row_counts <= seg.SEG_MAX_FRAMES)
-            )[0]
-
-            # The rep cache is valid only for the radius_cap it was built at: a
-            # sweep at prune_tolerance(smaller cap) over reps clustered at a
-            # larger cap breaks the triangle bound and silently drops pairs.
-            rep_cols = prune_state.get("rep_cols")
-            with span("prune.col_reps") as part:
-                if rep_cols is None or prune_state.get("rep_cols_radius_cap") != radius_cap:
-                    seg_col_idx = np.nonzero(
-                        (col_counts >= 1) & (col_counts <= seg.SEG_MAX_FRAMES)
-                    )[0]
-                    # cluster in slabs so only one slab of column blobs is resident
-                    col_reps: list[bytes] = []
-                    slab = 1 << 18
-                    for s0 in range(0, len(seg_col_idx), slab):
-                        sl = seg_col_idx[s0 : s0 + slab]
-                        col_reps.extend(
-                            reps_mod.extract_reps(
-                                [b for _, b in iter_blob_items(all_phashes, sl)], radius_cap
-                            )
-                        )
-                    # stage A's work grows with the square of the leaders' share
-                    count("prune.col_frames", int(col_counts[seg_col_idx].sum()))
-                    count("prune.col_leaders", sum(map(len, col_reps)) // BYTES)
-                    rep_cols = prune_state["rep_cols"] = list(zip(seg_col_idx.tolist(), col_reps))
-                    prune_state["rep_cols_radius_cap"] = radius_cap
-                    # the device staging and the lookup of the old reps are stale
-                    prune_state.pop("seg_cols", None)
-                    prune_state.pop("rep_lookup", None)
-            laps("col reps", seconds=part.seconds)
+            seg_row_idx = _seg_eligible(row_counts)
 
             with span("prune.row_reps") as part:
                 if rows_at is not None:
@@ -689,6 +673,61 @@ class GpuSearchEngine:
                     )
                 )
             return out
+
+    def pick_prefilter(self, all_phashes, col_state: dict, search_prefilter: str) -> bool:
+        """Whether a sweep of ``all_phashes`` takes the prune
+        (``find_pairs_pruned``) under the user's ``search_prefilter``:
+        ``none`` never, ``reps`` always, ``auto`` when the columns' scene
+        leaders are at most PREFILTER_MAX_REP_FRACTION of their frames. A
+        prune finds the columns' leaders in ``col_state``, clustered here."""
+        if search_prefilter == "none":
+            return False
+        rep_cols = self._cluster_columns(all_phashes, col_state, reps_mod.RADIUS_CAP)
+        if search_prefilter == "reps":
+            return True
+        col_counts = col_state["col_n_frames"]
+        frames = int(col_counts[_seg_eligible(col_counts)].sum())
+        leaders = sum(len(b) for _, b in rep_cols) // BYTES
+        if leaders <= self.PREFILTER_MAX_REP_FRACTION * frames:
+            return True
+        log.info(
+            "prefilter auto: reps %d / frames %d — compression too weak, using the plain sweep",
+            leaders, frames,
+        )
+        del col_state["prune"]  # the plain sweep keeps no leaders
+        return False
+
+    def _cluster_columns(self, all_phashes, state: dict, radius_cap: int) -> list[tuple[int, bytes]]:
+        """(corpus index, scene leaders at ``radius_cap``) for every column
+        of 1..SEG_MAX_FRAMES frames, in the span ``prune.col_reps``: once a
+        sweep, cached in ``state["prune"]`` with their cap, the column
+        frame counts in ``state["col_n_frames"]``."""
+        prune_state = state.setdefault("prune", {})
+        with span("prune.col_reps"):
+            col_counts = state.get("col_n_frames")
+            if col_counts is None:
+                col_counts = state["col_n_frames"] = blob_frame_counts(all_phashes)
+            # The rep cache is valid only for the radius_cap it was built at: a
+            # sweep at prune_tolerance(smaller cap) over reps clustered at a
+            # larger cap breaks the triangle bound and silently drops pairs.
+            rep_cols = prune_state.get("rep_cols")
+            if rep_cols is not None and prune_state.get("rep_cols_radius_cap") == radius_cap:
+                return rep_cols
+            seg_col_idx = _seg_eligible(col_counts)
+            col_reps: list[bytes] = []
+            for s0 in range(0, len(seg_col_idx), COL_REPS_SLAB):
+                sl = seg_col_idx[s0 : s0 + COL_REPS_SLAB]
+                blobs = [b for _, b in iter_blob_items(all_phashes, sl)]
+                col_reps.extend(reps_mod.extract_reps(blobs, radius_cap))
+            # stage A's work grows with the square of the leaders' share
+            count("prune.col_frames", int(col_counts[seg_col_idx].sum()))
+            count("prune.col_leaders", sum(map(len, col_reps)) // BYTES)
+            rep_cols = prune_state["rep_cols"] = list(zip(seg_col_idx.tolist(), col_reps))
+            prune_state["rep_cols_radius_cap"] = radius_cap
+            # the device staging and the lookup of the old reps are stale
+            prune_state.pop("seg_cols", None)
+            prune_state.pop("rep_lookup", None)
+            return rep_cols
 
     def _stage_columns(self, seg_cols: SegColumns, laps: Laps | None = None) -> dict:
         """Pack the column corpus into CHUNK_FRAMES chunks (N_SPLIT per

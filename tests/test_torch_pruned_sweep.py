@@ -24,9 +24,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from hydrus_video_deduplicator_tpu_torch import dedup
 from hydrus_video_deduplicator_tpu_torch.ops import reps
 from hydrus_video_deduplicator_tpu_torch.ops import similarity_segments as seg
+from hydrus_video_deduplicator_tpu_torch.parallel.engine import GpuSearchEngine
 from hydrus_video_deduplicator_tpu_torch.utils import profiling
 
 BENCH = Path(__file__).resolve().parents[1] / "hvd_bench"
@@ -106,4 +106,4 @@ def test_the_column_counts_equal_the_clustering(library, recorder):
     assert counts["prune.col_frames"] == sum(map(len, eligible)) // reps.BYTES
     assert counts["prune.col_leaders"] == sum(map(len, reps.extract_reps(eligible))) // reps.BYTES
     share = counts["prune.col_leaders"] / counts["prune.col_frames"]
-    assert 0 < share < dedup.HydrusVideoDeduplicator.PREFILTER_MAX_REP_FRACTION
+    assert 0 < share < GpuSearchEngine.PREFILTER_MAX_REP_FRACTION

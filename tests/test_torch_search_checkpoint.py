@@ -15,7 +15,7 @@ on the CPU) on the same inputs.
   event, a new-against-new hit two, halved at the end).
 - The engine over a searched prefix: row chunks that start past the
   searched videos, each sweeping the corpus up to its own end.
-- The rep cache that stage 4 seeds for its sweep, on a second
+- The rep cache the engine clusters for stage 4's sweep, on a second
   ``deduplicate()`` of the same orchestrator.
 """
 
@@ -275,10 +275,11 @@ def test_delta_run_equals_the_jax_orchestrator(
 
 def test_same_orchestrator_runs_the_delta_on_its_rep_cache(delta_library, tmp_path, monkeypatch):
     """Two deduplicate() calls of one orchestrator, the second after the
-    new videos were queued: each sweep's rep cache is the one stage 4
-    seeded (every library video's reps, stamped with the radius cap the
-    engine checks, so the engine clusters no column), and the runs return
-    and mark what the JAX orchestrator's do."""
+    new videos were queued: each sweep's rep cache is the one the engine
+    clustered when stage 4 asked it whether to prune (every library
+    video's reps, stamped with the radius cap find_pairs_pruned checks, so
+    no chunk clusters a column again), and the runs return and mark what
+    the JAX orchestrator's do."""
     blobs, expected, new, delta = delta_library
     n = len(blobs)
     caches = []
@@ -326,7 +327,7 @@ def test_same_orchestrator_runs_the_delta_on_its_rep_cache(delta_library, tmp_pa
         (n, non_empty(blobs), reps_mod.RADIUS_CAP),
         (n + len(new), non_empty(blobs + new), reps_mod.RADIUS_CAP),
     ]
-    # stage 4 clusters each sweep's columns once (in slabs); the engine none
+    # each sweep's columns are clustered once (in slabs), none again by a chunk
     assert clusters == [non_empty(blobs), non_empty(blobs + new)]
 
 

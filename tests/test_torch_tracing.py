@@ -10,6 +10,7 @@ import functools
 import json
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -239,6 +240,66 @@ def test_the_orchestrator_records_its_chunks(library, recorder, tmp_path, monkey
     prefetch = [r for r in records if r.name == "chunk.prefetch"]
     assert len(prefetch) == len(chunks)
     assert all(r.thread != threading.main_thread().ident and r.parent is None for r in prefetch)
+
+
+#: search_prefilter and library -> (columns clustered, search the chunks call)
+PREFILTERS = {
+    "none": (False, "find_pairs"),
+    "reps": (True, "find_pairs_pruned"),
+    "auto-scenes": (True, "find_pairs_pruned"),
+    "auto-clips": (True, "find_pairs"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILTERS))
+def test_the_engine_clusters_the_orchestrators_columns_once(
+    library, recorder, tmp_path, monkeypatch, case
+):
+    """stage 4 of the port's main() asks the engine whether to prune: but
+    for none, extract_reps clusters the columns once a sweep, inside the
+    engine's prune.col_reps span with its frame and leader counts; auto
+    prunes the scene library and declines 8-frame random clips, leaving
+    no leaders in col_state and sweeping unpruned."""
+    clustered, search = PREFILTERS[case]
+    prefilter = case.split("-")[0]
+    if case == "auto-clips":
+        blobs, expected, _ = scene_library.build_sweep_corpus(N_VIDEOS, n_plant=4, n_far=2)
+        planted = {(a, b) for a, b in expected if a < b}
+    else:
+        blobs, planted = library
+    db_mod, _, cls, _ = PACKAGES["port"]
+    monkeypatch.setattr(cls, "SEARCH_CHECKPOINT_ROWS", CHUNK_ROWS)
+    calls, states = [], []
+    real_reps = engine.reps_mod.extract_reps
+    monkeypatch.setattr(
+        engine.reps_mod, "extract_reps",
+        lambda b, *a: calls.append(time.perf_counter_ns()) or real_reps(b, *a),
+    )
+    for name in ("find_pairs", "find_pairs_pruned"):
+        real = getattr(GpuSearchEngine, name)
+
+        def spy(self, *args, col_state=None, _real=real, **kwargs):
+            states.append(col_state)
+            return _real(self, *args, col_state=col_state, **kwargs)
+
+        monkeypatch.setattr(GpuSearchEngine, name, spy)
+    _queue(db_mod, tmp_path, 0, blobs)
+    main = functools.partial(entrypoint.main, search_backend="gpu", device="cpu")
+    _, marked, _ = _main_run(main, tmp_path, len(blobs), search_prefilter=prefilter)
+    assert marked == planted
+    records = recorder.records()
+    by_id = _by_id(records)
+    searches = [r.name for r in records if r.parent and by_id[r.parent].name == "chunk.search"]
+    assert searches == [search] * -(-len(blobs) // CHUNK_ROWS)
+    assert all(state is states[0] for state in states)
+    clusterings = [r for r in records if "prune.col_leaders" in r.counts]
+    if not clustered:
+        assert calls == [] and clusterings == []
+        return
+    (c,) = clusterings
+    assert c.name == "prune.col_reps" and len(calls) == 1 and c.start <= calls[0] <= c.end
+    assert c.counts["prune.col_frames"] == sum(len(b) for b in blobs) // 32
+    assert ("prune" in states[0]) == (search == "find_pairs_pruned")
 
 
 @pytest.mark.parametrize("cap", [0, 3])
